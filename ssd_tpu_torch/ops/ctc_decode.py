@@ -1,0 +1,242 @@
+"""Batched CTC decoding on the tensors' device: greedy and prefix beam search
+(PyTorch port of ``ssd_tpu/ops/ctc_decode.py``, same semantics).
+
+* pad probability mass is log-add-merged into blank before decoding and the
+  pad symbol never extends a prefix;
+* additive ``blank_bias`` on the blank log-prob;
+* per-frame token admission: tokens below ``token_min_logp`` are not
+  considered unless they are the frame argmax;
+* ``token_top_k``: only the per-frame top-k tokens are extension candidates;
+* per-step beam pruning: beams below ``best + beam_prune_logp`` die;
+* frames past a sample's length leave its beams untouched;
+* duplicate prefixes merge by log-sum-exp of their (blank, non-blank) path
+  probabilities. Prefix identity is two 32-bit rolling hashes, computed in
+  int64 and masked to 32 bits; candidates are sorted by the packed hash
+  pair, so equal prefixes sit together, and each run is reduced with a
+  scatter log-sum-exp in place of the JAX associative scan.
+
+The search emits per-step backpointers ``(parent_beam, emitted_char)``;
+:func:`traceback` rebuilds the prefixes on the host.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+NEG_INF = -1.0e30
+
+# rolling-hash multipliers (two independent streams)
+_H1_MULT = 1000003
+_H2_MULT = 65599
+_MASK32 = 0xFFFFFFFF
+
+
+# --------------------------------------------------------------------------
+# Greedy
+# --------------------------------------------------------------------------
+
+
+def greedy_decode(
+    log_probs: torch.Tensor,
+    lengths: torch.Tensor,
+    blank_id: int,
+    pad_id: int = 0,
+    blank_bias: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vectorized argmax–collapse–dedup decode.
+
+    Returns ``(tokens (B, T) int32 padded with pad_id, counts (B,))``.
+    """
+    B, T, V = log_probs.shape
+    dev = log_probs.device
+    lp = log_probs.clone()
+    lp[:, :, blank_id] += blank_bias
+    preds = lp.argmax(dim=-1).to(torch.int32)  # (B, T)
+
+    valid = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+    prev = torch.nn.functional.pad(preds[:, :-1], (1, 0), value=-1)
+    keep = valid & (preds != blank_id) & (preds != prev)
+
+    # stable compaction: position of each kept token in the output row
+    pos = torch.cumsum(keep.to(torch.int64), dim=1) - 1
+    out = torch.full((B, T + 1), pad_id, dtype=torch.int32, device=dev)
+    out.scatter_(1, torch.where(keep, pos, T), torch.where(keep, preds, pad_id))
+    counts = keep.sum(dim=1).to(torch.int32)
+    return out[:, :T], counts
+
+
+# --------------------------------------------------------------------------
+# Prefix beam search
+# --------------------------------------------------------------------------
+
+
+def _run_logsumexp(values: torch.Tensor, run_id: torch.Tensor, n_runs: int) -> torch.Tensor:
+    """Log-sum-exp of ``values`` over each run (``run_id`` per position),
+    broadcast back to every position of the run. Rows are independent."""
+    B = values.shape[0]
+    vmax = torch.full((B, n_runs), NEG_INF, dtype=values.dtype, device=values.device)
+    vmax = vmax.scatter_reduce(1, run_id, values, reduce="amax", include_self=True)
+    m = vmax.gather(1, run_id)
+    sums = torch.zeros_like(vmax).scatter_add_(1, run_id, torch.exp(values - m))
+    return m + torch.log(sums.gather(1, run_id))
+
+
+def beam_search(
+    log_probs: torch.Tensor,
+    lengths: torch.Tensor,
+    blank_id: int,
+    pad_id: int,
+    beam_width: int,
+    beam_prune_logp: float = -10.0,
+    token_min_logp: float = -5.0,
+    blank_bias: float = 0.0,
+    token_top_k: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched CTC prefix beam search.
+
+    Args:
+      log_probs: ``(B, T, V)`` log-softmax outputs.
+      lengths: ``(B,)`` valid frame counts.
+      token_top_k: when set, only the top-k tokens per frame are candidate
+        extensions (blank handled separately).
+
+    Returns:
+      ``(chars (T, B, K) int32, parents (T, B, K) int32, final_scores
+      (B, K))`` — per-step backpointers (char −1 ⇒ no emission) plus final
+      beam scores, for :func:`traceback`. Beam 0 of the final step is the
+      best hypothesis.
+    """
+    B, T, V = log_probs.shape
+    K = beam_width
+    dev = log_probs.device
+
+    lp = log_probs.to(torch.float32).clone()
+    lp[:, :, blank_id] += blank_bias
+    if pad_id != blank_id:
+        # merge pad mass into blank; pad can then never be emitted
+        lp[:, :, blank_id] = torch.logaddexp(lp[:, :, blank_id], lp[:, :, pad_id])
+
+    token_ids = torch.arange(V, dtype=torch.int64, device=dev)
+    ext_invalid = (token_ids == blank_id) | (token_ids == pad_id)  # (V,)
+    masked_lp = lp.masked_fill(ext_invalid[None, None, :], NEG_INF)
+    if token_top_k is not None and token_top_k < V:
+        ext_vals_all, ext_ids_all = torch.topk(masked_lp, token_top_k, dim=-1)
+    else:
+        ext_vals_all = masked_lp
+        ext_ids_all = token_ids.expand(B, T, V)
+    E = ext_vals_all.shape[2]
+    argmax_all = lp.argmax(dim=-1)  # (B, T)
+    admitted_all = (lp >= token_min_logp) | (token_ids[None, None, :] == argmax_all[..., None])
+    lp_adm_all = torch.where(admitted_all, lp, NEG_INF)  # (B, T, V)
+    ext_adm_all = (ext_vals_all >= token_min_logp) | (ext_ids_all == argmax_all[..., None])
+    lp_ext_all = torch.where(ext_adm_all, ext_vals_all, NEG_INF)  # (B, T, E)
+
+    p_b = torch.full((B, K), NEG_INF, device=dev)
+    p_b[:, 0] = 0.0
+    p_nb = torch.full((B, K), NEG_INF, device=dev)
+    h1 = torch.zeros((B, K), dtype=torch.int64, device=dev)
+    h2 = torch.zeros((B, K), dtype=torch.int64, device=dev)
+    last = torch.full((B, K), -1, dtype=torch.int64, device=dev)
+
+    N = K + K * E
+    beams = torch.arange(K, dtype=torch.int64, device=dev)
+    parent = torch.cat([beams, beams.repeat_interleave(E)]).expand(B, N)
+    ext_pb = torch.full((B, K * E), NEG_INF, device=dev)
+    no_char = torch.full((B, K), -1, dtype=torch.int64, device=dev)
+    first = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    active_all = torch.arange(T, device=dev)[:, None] < lengths[None, :].to(dev)  # (T, B)
+    chars_out = torch.empty((T, B, K), dtype=torch.int32, device=dev)
+    parents_out = torch.empty((T, B, K), dtype=torch.int32, device=dev)
+
+    for t in range(T):
+        lp_adm = lp_adm_all[:, t]  # (B, V)
+        lp_ext = lp_ext_all[:, t][:, None, :]  # (B, 1, E)
+        ext_ids = ext_ids_all[:, t]  # (B, E)
+
+        p_tot = torch.logaddexp(p_b, p_nb)  # (B, K)
+        # ---- stay candidates (one per beam): prefix unchanged
+        stay_pb = p_tot + lp_adm[:, blank_id : blank_id + 1]
+        lp_last = lp_adm.gather(1, last.clamp(0, V - 1))
+        stay_pnb = torch.where(last >= 0, p_nb + lp_last, NEG_INF)
+
+        # ---- extension candidates (per beam × extension token)
+        same_as_last = ext_ids[:, None, :] == last[:, :, None]  # (B, K, E)
+        base = torch.where(same_as_last, p_b[:, :, None], p_tot[:, :, None])
+        ext_pnb = (base + lp_ext).reshape(B, K * E)
+        vv = ext_ids[:, None, :] + 1  # (B, 1, E)
+        ext_h1 = ((h1[:, :, None] * _H1_MULT + vv) & _MASK32).reshape(B, K * E)
+        ext_h2 = ((h2[:, :, None] * _H2_MULT + vv) & _MASK32).reshape(B, K * E)
+        ext_char = ext_ids[:, None, :].expand(B, K, E).reshape(B, K * E)
+
+        # ---- flatten candidates: [stay (K), ext (K·E)]
+        cand_pb = torch.cat([stay_pb, ext_pb], dim=1)
+        cand_pnb = torch.cat([stay_pnb, ext_pnb], dim=1)
+        cand_h1 = torch.cat([h1, ext_h1], dim=1)
+        cand_h2 = torch.cat([h2, ext_h2], dim=1)
+        cand_char = torch.cat([no_char, ext_char], dim=1)
+        cand_last = torch.cat([last, ext_char], dim=1)
+
+        # ---- merge duplicates: sort by the packed hash pair, run log-sum-exp
+        key = (cand_h1 << 32) | cand_h2
+        s_key, order = torch.sort(key, dim=1, stable=True)
+        new_seg = torch.cat([first, s_key[:, 1:] != s_key[:, :-1]], dim=1)
+        run_id = torch.cumsum(new_seg.to(torch.int64), dim=1) - 1
+        m_pb = _run_logsumexp(cand_pb.gather(1, order), run_id, N)
+        m_pnb = _run_logsumexp(cand_pnb.gather(1, order), run_id, N)
+        run_last = torch.cat([new_seg[:, 1:], first], dim=1)
+        score = torch.where(run_last, torch.logaddexp(m_pb, m_pnb), NEG_INF)
+
+        top_score, top_idx = torch.topk(score, K, dim=1)
+        src = order.gather(1, top_idx)  # candidate index of each survivor
+        n_pb = m_pb.gather(1, top_idx)
+        n_pnb = m_pnb.gather(1, top_idx)
+
+        # beam pruning relative to the best beam
+        dead = top_score < top_score[:, :1] + beam_prune_logp
+        n_pb = n_pb.masked_fill(dead, NEG_INF)
+        n_pnb = n_pnb.masked_fill(dead, NEG_INF)
+
+        # frames beyond a sample's length leave its beams untouched
+        active = active_all[t][:, None]  # (B, 1)
+        p_b = torch.where(active, n_pb, p_b)
+        p_nb = torch.where(active, n_pnb, p_nb)
+        h1 = torch.where(active, cand_h1.gather(1, src), h1)
+        h2 = torch.where(active, cand_h2.gather(1, src), h2)
+        last = torch.where(active, cand_last.gather(1, src), last)
+        # backpointers: identity transition for frozen samples
+        parents_out[t] = torch.where(active, parent.gather(1, src), beams[None, :])
+        chars_out[t] = torch.where(active, cand_char.gather(1, src), -1)
+
+    final_scores = torch.logaddexp(p_b, p_nb)  # (B, K) — beams ranked desc
+    return chars_out, parents_out, final_scores
+
+
+def traceback(
+    chars: np.ndarray, parents: np.ndarray, beam: np.ndarray | int = 0
+) -> List[List[int]]:
+    """Reconstruct prefixes from backpointers.
+
+    Args:
+      chars/parents: ``(T, B, K)`` arrays from :func:`beam_search`.
+      beam: final beam index (int or per-batch array).
+
+    Returns: list of token-id lists, one per batch element.
+    """
+    chars = np.asarray(chars)
+    parents = np.asarray(parents)
+    T, B, _ = chars.shape
+    beams = np.full((B,), beam) if np.isscalar(beam) else np.asarray(beam)
+    out: List[List[int]] = []
+    for b in range(B):
+        k = int(beams[b])
+        rev: List[int] = []
+        for t in range(T - 1, -1, -1):
+            c = int(chars[t, b, k])
+            if c >= 0:
+                rev.append(c)
+            k = int(parents[t, b, k])
+        out.append(rev[::-1])
+    return out
