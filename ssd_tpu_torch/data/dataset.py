@@ -1,0 +1,372 @@
+"""Host-side dataset + bucketed static-shape batching (the port's own copy of
+``ssd_tpu/data/dataset.py``, single process).
+
+* split/subset selection, transcript normalization with empty-row dropping
+  at construction, strict vs lenient teacher loading;
+* per item: cached EMG ``(T, C, M)`` flattened to ``(T, C·M)`` — or, in raw
+  mode, the original ``(samples, channels)`` signal from the index's
+  ``emg_path`` — optional teacher ``(T_t, D)``, tokenized transcript;
+* length-bucketed, statically padded batches (``TIME_BUCKET``,
+  ``TOKEN_BUCKET``, ``TEACHER_BUCKET``);
+* deterministic per-epoch shuffles and per-batch augmentation RNG.
+
+Given the same index and seed, the batches equal the JAX loader's bit for
+bit (``tests/test_torch_data.py``). The loader runs in-process, fed to the
+step by the :func:`prefetch` thread; the JAX package's worker-process pool
+and its multi-host sharding are not ported (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from ssd_tpu_torch.data.augment import (
+    ChannelDropoutConfig,
+    SpecAugmentConfig,
+    channel_dropout_np,
+    spec_augment_np,
+)
+from ssd_tpu_torch.data.index_dataset import load_index
+from ssd_tpu_torch.data.text_normalizer import normalize_transcript
+from ssd_tpu_torch.data.vocab import Vocab
+
+logger = logging.getLogger(__name__)
+
+TIME_BUCKET = 128
+TOKEN_BUCKET = 32
+TEACHER_BUCKET = 64
+
+
+def _round_up(n: int, m: int) -> int:
+    return max(m, ((n + m - 1) // m) * m)
+
+
+@dataclass
+class Batch:
+    """One padded batch; all arrays numpy, ready to feed the device."""
+
+    utterance_ids: List[str]
+    transcripts: List[str]
+    emg: np.ndarray  # (B, T, C·M) float32, or raw (B, samples, C)
+    emg_lengths: np.ndarray  # (B,) int32
+    tokens: np.ndarray  # (B, S) int32
+    token_lengths: np.ndarray  # (B,) int32
+    teacher: Optional[np.ndarray]  # (B, T_t, D) float32 | None
+    teacher_lengths: Optional[np.ndarray]  # (B,) int32 | None
+
+    @property
+    def size(self) -> int:
+        return len(self.utterance_ids)
+
+
+class EMGFeatureDataset:
+    """Loads cached EMG/teacher features + tokenized transcripts."""
+
+    def __init__(
+        self,
+        index_path: Path,
+        features_root: Path,
+        splits: Sequence[str],
+        vocab: Vocab,
+        subsets: Optional[Sequence[str]] = None,
+        include_teacher: bool = True,
+        strict: bool = True,
+        channel_dropout_cfg: Optional[ChannelDropoutConfig] = None,
+        raw: bool = False,
+    ) -> None:
+        rows = [r for r in load_index(Path(index_path)) if r["split"] in set(splits)]
+        if subsets:
+            if any("subset" not in r for r in rows):
+                raise KeyError("Index missing 'subset' column; re-run indexing.")
+            rows = [r for r in rows if r["subset"] in set(subsets)]
+        for r in rows:
+            r["transcript_norm"] = normalize_transcript(r["transcript"])
+        self._rows = [r for r in rows if r["transcript_norm"]]
+        self.features_root = Path(features_root)
+        self.vocab = vocab
+        self.include_teacher = include_teacher
+        self.strict = strict
+        self.raw = raw
+        self.channel_dropout_cfg = channel_dropout_cfg or ChannelDropoutConfig()
+        self._lengths_cache: Dict[int, int] = {}
+
+    def __len__(self) -> int:
+        return len(self._rows)
+
+    # ------------------------------------------------------------ loading
+    def _emg_path(self, utterance_id: str) -> Path:
+        return self.features_root / "emg" / f"{utterance_id}.npy"
+
+    def _teacher_path(self, utterance_id: str) -> Path:
+        return self.features_root / "teacher" / f"{utterance_id}.npy"
+
+    def feature_length(self, idx: int) -> int:
+        """Time length of item ``idx`` — feature frames, or raw samples in
+        raw mode (mmap header read only; cached)."""
+        if idx not in self._lengths_cache:
+            row = self._rows[idx]
+            path = Path(row["emg_path"]) if self.raw else self._emg_path(row["utterance_id"])
+            if not path.exists():
+                raise FileNotFoundError(path)
+            self._lengths_cache[idx] = int(np.load(path, mmap_mode="r").shape[0])
+        return self._lengths_cache[idx]
+
+    def get(self, idx: int, rng: Optional[np.random.Generator] = None) -> Dict:
+        row = self._rows[idx]
+        uid = row["utterance_id"]
+        if self.raw:
+            path = Path(row["emg_path"])
+            if not path.exists():
+                raise FileNotFoundError(path)
+            # (samples, channels) — augmentation happens on device in raw mode
+            emg = np.load(path, mmap_mode="r").astype(np.float32, copy=False)
+        else:
+            path = self._emg_path(uid)
+            if not path.exists():
+                raise FileNotFoundError(path)
+            feat = np.load(path, mmap_mode="r").astype(np.float32, copy=False)
+            if rng is not None:
+                feat = channel_dropout_np(feat, self.channel_dropout_cfg, rng)
+            t, c, m = feat.shape
+            emg = feat.reshape(t, c * m)
+
+        teacher = None
+        if self.include_teacher:
+            tp = self._teacher_path(uid)
+            if tp.exists():
+                teacher = np.load(tp, mmap_mode="r").astype(np.float32, copy=False)
+            elif self.strict:
+                raise FileNotFoundError(tp)
+
+        transcript = row["transcript_norm"]
+        tokens = np.asarray(self.vocab.encode(transcript), dtype=np.int32)
+        return {
+            "utterance_id": uid,
+            "transcript": transcript,
+            "emg": emg,
+            "teacher": teacher,
+            "tokens": tokens,
+        }
+
+
+def collate(
+    items: List[Dict],
+    vocab: Vocab,
+    spec_augment_cfg: Optional[SpecAugmentConfig] = None,
+    rng: Optional[np.random.Generator] = None,
+    time_bucket: int = TIME_BUCKET,
+) -> Batch:
+    """Right-pad items to bucket-rounded static shapes."""
+    emg_lengths = np.asarray([it["emg"].shape[0] for it in items], np.int32)
+    token_lengths = np.asarray([len(it["tokens"]) for it in items], np.int32)
+    T = _round_up(int(emg_lengths.max()), time_bucket)
+    S = _round_up(int(token_lengths.max()), TOKEN_BUCKET)
+    F = items[0]["emg"].shape[1]
+    B = len(items)
+
+    emg = np.zeros((B, T, F), np.float32)
+    tokens = np.full((B, S), vocab.pad_id, np.int32)
+    for i, it in enumerate(items):
+        x = it["emg"]
+        if spec_augment_cfg is not None and rng is not None:
+            x = spec_augment_np(x, spec_augment_cfg, rng)
+        emg[i, : x.shape[0]] = x
+        tokens[i, : len(it["tokens"])] = it["tokens"]
+
+    teacher = None
+    teacher_lengths = None
+    if any(it["teacher"] is not None for it in items):
+        teacher_lengths = np.asarray(
+            [0 if it["teacher"] is None else it["teacher"].shape[0] for it in items], np.int32
+        )
+        Tt = _round_up(int(teacher_lengths.max()), TEACHER_BUCKET)
+        D = next(it["teacher"].shape[1] for it in items if it["teacher"] is not None)
+        teacher = np.zeros((B, Tt, D), np.float32)
+        for i, it in enumerate(items):
+            if it["teacher"] is not None:
+                teacher[i, : it["teacher"].shape[0]] = it["teacher"]
+
+    return Batch(
+        utterance_ids=[it["utterance_id"] for it in items],
+        transcripts=[it["transcript"] for it in items],
+        emg=emg,
+        emg_lengths=emg_lengths,
+        tokens=tokens,
+        token_lengths=token_lengths,
+        teacher=teacher,
+        teacher_lengths=teacher_lengths,
+    )
+
+
+class DataLoader:
+    """Bucketed batch iterator over an :class:`EMGFeatureDataset`.
+
+    Each epoch, items are shuffled, stably sorted by bucketed length, cut
+    into batches, and the batch order shuffled again — randomness with
+    near-uniform batch shapes. Without shuffling (eval), items keep index
+    order and batches are cut sequentially.
+    """
+
+    def __init__(
+        self,
+        dataset: EMGFeatureDataset,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 0,
+        spec_augment_cfg: Optional[SpecAugmentConfig] = None,
+        max_items: Optional[int] = None,
+        time_bucket: int = TIME_BUCKET,
+    ) -> None:
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.spec_augment_cfg = spec_augment_cfg
+        # time-axis padding granularity: feature frames normally, raw samples
+        # (frames × hop) when the dataset is in raw mode
+        self.time_bucket = time_bucket
+        self.epoch = 0
+        indices = list(range(len(dataset)))
+        if max_items is not None:
+            indices = indices[: min(max_items, len(indices))]
+        self._indices = indices
+
+    def __len__(self) -> int:
+        return (len(self._indices) + self.batch_size - 1) // self.batch_size
+
+    def _epoch_batches(self, rng: np.random.Generator) -> List[List[int]]:
+        indices = list(self._indices)
+        if self.shuffle:
+            rng.shuffle(indices)
+            # stable sort by bucketed length keeps shuffle randomness within
+            # equal-bucket groups while minimizing padding waste
+            indices.sort(key=lambda i: _round_up(self.dataset.feature_length(i), self.time_bucket))
+        bs = self.batch_size
+        batches = [indices[i : i + bs] for i in range(0, len(indices), bs)]
+        if self.shuffle:
+            rng.shuffle(batches)
+        return batches
+
+    def _batch_rng(self, epoch: int, batch_idx: int) -> np.random.Generator:
+        """Per-batch augmentation RNG, derived from (seed, epoch, batch index)
+        rather than drawn from one sequential stream: a batch's augmentation
+        does not depend on how many draws earlier batches consumed."""
+        return np.random.default_rng((self.seed, epoch, batch_idx))
+
+    def _build_batch(self, epoch: int, batch_idx: int, batch_indices: List[int]) -> Batch:
+        rng = self._batch_rng(epoch, batch_idx) if self.shuffle else None
+        items = [self.dataset.get(i, rng) for i in batch_indices]
+        return collate(
+            items,
+            self.dataset.vocab,
+            spec_augment_cfg=self.spec_augment_cfg if self.shuffle else None,
+            rng=rng,
+            time_bucket=self.time_bucket,
+        )
+
+    def __iter__(self) -> Iterator[Batch]:
+        epoch = self.epoch
+        self.epoch += 1
+        rng = np.random.default_rng((self.seed, epoch))
+        for bi, batch_indices in enumerate(self._epoch_batches(rng)):
+            yield self._build_batch(epoch, bi, batch_indices)
+
+
+def prefetch(loader: DataLoader, size: int = 2) -> Iterator[Batch]:
+    """Background-thread prefetch: the next batches load while the device
+    steps. Closing or abandoning the returned generator stops the producer
+    thread instead of leaving it blocked on the bounded queue."""
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    sentinel = object()
+    err: List[BaseException] = []
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer() -> None:
+        try:
+            for batch in loader:
+                if not _put(batch):
+                    return
+        except BaseException as e:  # handed to the consumer, re-raised there
+            err.append(e)
+        finally:
+            _put(sentinel)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+
+
+def make_dataloader(
+    index_path: Path,
+    features_root: Path,
+    splits: Sequence[str],
+    subsets: Optional[Sequence[str]],
+    vocab: Vocab,
+    batch_size: int,
+    shuffle: bool = True,
+    seed: int = 0,
+    spec_augment_cfg: Optional[SpecAugmentConfig] = None,
+    include_teacher: bool = True,
+    strict: bool = True,
+    max_items: Optional[int] = None,
+    channel_dropout_cfg: Optional[ChannelDropoutConfig] = None,
+    raw: bool = False,
+    raw_hop_length: int = 10,
+) -> DataLoader:
+    """Factory with the JAX package's surface (``dataset.py:make_dataloader``).
+
+    ``raw=True`` loads the ORIGINAL (samples, channels) EMG from the index's
+    ``emg_path``; featurization then happens on device inside the train
+    step, so host augmentation is refused in this mode.
+    """
+    if raw and (spec_augment_cfg is not None or channel_dropout_cfg is not None):
+        raise ValueError(
+            "raw mode featurizes on device; host augmentation configs must be "
+            "moved on device (augmentation.on_device: true)"
+        )
+    dataset = EMGFeatureDataset(
+        index_path=index_path,
+        features_root=features_root,
+        splits=splits,
+        vocab=vocab,
+        subsets=subsets,
+        include_teacher=include_teacher,
+        strict=strict,
+        channel_dropout_cfg=channel_dropout_cfg,
+        raw=raw,
+    )
+    return DataLoader(
+        dataset,
+        batch_size=batch_size,
+        shuffle=shuffle,
+        seed=seed,
+        spec_augment_cfg=spec_augment_cfg,
+        max_items=max_items,
+        # same frame granularity as feature mode, expressed in samples
+        time_bucket=TIME_BUCKET * raw_hop_length if raw else TIME_BUCKET,
+    )

@@ -12,7 +12,7 @@ weight bridge unstacks a ``scan_layers`` tree.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,19 +22,35 @@ from ssd_tpu_torch.models.heads import CTCHead, ProjectionHead
 
 
 class SSDModel(nn.Module):
-    def __init__(self, encoder_cfg: EncoderConfig, projection_dim: int, vocab_size: int):
+    def __init__(
+        self,
+        encoder_cfg: EncoderConfig,
+        projection_dim: int,
+        vocab_size: int,
+        ctc_dropout: float = 0.1,
+    ):
         super().__init__()
         self.encoder_cfg = encoder_cfg
         self.encoder = EMGConformerEncoder(encoder_cfg)
-        self.projection = ProjectionHead(encoder_cfg.d_model, projection_dim)
-        self.ctc_head = CTCHead(encoder_cfg.d_model, vocab_size)
+        # the projection head drops with the encoder's rate, the CTC head
+        # with model.ctc_dropout (ssd_tpu/models/ssd_model.py:33-44)
+        self.projection = ProjectionHead(encoder_cfg.d_model, projection_dim, encoder_cfg.dropout)
+        self.ctc_head = CTCHead(encoder_cfg.d_model, vocab_size, ctc_dropout)
 
     def forward(
-        self, emg: torch.Tensor, lengths: torch.Tensor
+        self,
+        emg: torch.Tensor,
+        lengths: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Returns (log_probs (B,T',V), out_lengths (B,), student_repr (B,T',P))."""
-        enc, out_lengths = self.encoder(emg, lengths)
-        return self.ctc_head(enc), out_lengths, self.projection(enc)
+        """Returns (log_probs (B,T',V), out_lengths (B,), student_repr (B,T',P)).
+
+        ``train=True`` draws dropout from ``generator`` and updates the
+        MaskedBatchNorm running statistics in place."""
+        enc, out_lengths = self.encoder(emg, lengths, train, generator)
+        student = self.projection(enc, train, generator)
+        return self.ctc_head(enc, train, generator), out_lengths, student
 
     def ctc_log_probs(
         self, emg: torch.Tensor, lengths: torch.Tensor
@@ -101,4 +117,5 @@ def build_model(cfg: Dict[str, Any], input_dim: int, vocab_size: int) -> SSDMode
         encoder_cfg=encoder_cfg,
         projection_dim=cfg["model"]["projection_dim"],
         vocab_size=vocab_size,
+        ctc_dropout=cfg["model"].get("ctc_dropout", 0.1),
     )
