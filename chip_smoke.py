@@ -9,7 +9,8 @@ paths from ``ssd_tpu_torch/csrc`` itself (one nvcc per source, started
 together). Imports nothing of JAX or of the JAX package. Phases, each
 failing loudly:
 
-1. build   — compile ``csrc/logmel.cu`` and ``csrc/ctc.cu`` for sm_90a;
+1. build   — compile ``csrc/logmel.cu``, ``csrc/ctc.cu``,
+             ``csrc/attention.cu`` and ``csrc/depthwise_conv.cu`` for sm_90a;
              print the build times, ptxas's register report, the card's
              name and power limit, and the TF32 settings (off for matmuls
              and cuDNN for the whole run: the parity phases need fp32).
@@ -51,7 +52,25 @@ failing loudly:
              statistics; then 20 steps on one batch must lower the loss.
 9. train rate — step time p50 over 10 warm steps, split into forward +
              loss, backward and optimizer, utterances/s, and the CTC
-             kernels' share of the step, at B = 5 (config) and B = 32.
+             kernels' share of the step, at B = 5 (config) and B = 32;
+             peak memory per shape; the profiler's device-busy share.
+10. attention and depthwise kernels — the fused-attention forward and
+             backward kernels and the depthwise stencil's forward and
+             backward against their plain versions at the path's shapes
+             (B = 8 / T' = 625, B = 5 / T' = 640, B = 32 / T' = 384; H 6,
+             hd 48, C 288, K 15), random key lengths with one row of length
+             1, with and without a dropout multiplier; kernel, plain and
+             library (``F.scaled_dot_product_attention``, ``F.conv1d``) times.
+11. fused/pallas — the same model with ``attention_impl: fused`` and
+             ``depthwise_impl: pallas`` through every main path: (a) served
+             by the engine (B = 1 and 8, greedy and beam-50) and three
+             ``/transcribe`` requests, 6 attention- and 6 depthwise-forward
+             launches per transcribe, log-probs against the CPU engine and
+             against the default configuration on the same weights; (b)
+             trained for one epoch of 2 overfit batches (6 launches of each
+             kernel per step, backward kernels per train step only), then
+             served; (c) phase 8's card-vs-CPU step and overfit; (d) phase
+             9's rate with the four kernels' share of the step.
 
 The last three lines of standard output are the kernel JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``. Any failure
@@ -82,7 +101,9 @@ from ssd_tpu_torch.data.index_dataset import save_index
 from ssd_tpu_torch.data.vocab import default_vocab
 from ssd_tpu_torch.models.conformer import init_flax_style
 from ssd_tpu_torch.models.ssd_model import build_model
+from ssd_tpu_torch.ops import attention as attn
 from ssd_tpu_torch.ops import ctc_loss as ctc
+from ssd_tpu_torch.ops import depthwise_conv as dwc
 from ssd_tpu_torch.ops import featurizer as feat
 from ssd_tpu_torch.ops import mel as melmod
 from ssd_tpu_torch.serving.engine import InferenceEngine
@@ -105,6 +126,8 @@ MODEL = {
     "projection_dim": 768,
     "ctc_dropout": 0.12,
 }
+# the other implementation of two ops, on the same parameters
+FUSED = {"attention_impl": "fused", "depthwise_impl": "pallas"}
 DECODING = {"type": "beam", "beam_width": 50, "alpha": 0.4, "beta": 0.0,
             "beam_prune_logp": -10.0, "lm_path": None}
 
@@ -134,10 +157,15 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn()`` over ``iters`` warm launches."""
+    """Mean device time of ``fn()`` over ``iters`` warm launches. The stream
+    first spins for ~10 ms (``torch.cuda._sleep``) while the host queues the
+    launches, so a kernel shorter than its host-side launch is timed back
+    to back on the device, not at the host's launch rate."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -161,7 +189,8 @@ def requests(rng: np.random.Generator, n: int) -> list:
 def phase_build() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
-    libs = {"logmel.cu": feat.LOGMEL.library, "ctc.cu": ctc.CTC_ALPHA.library}
+    libs = {"logmel.cu": feat.LOGMEL.library, "ctc.cu": ctc.CTC_ALPHA.library,
+            "attention.cu": attn.ATTN_FWD.library, "depthwise_conv.cu": dwc.DW_FWD.library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
         list(pool.map(lambda lib: lib.load(), libs.values()))
@@ -240,10 +269,20 @@ def phase_kernel(rng: np.random.Generator) -> dict:
     return entry  # the B=8 (largest bucket) entry
 
 
-def build_run_dir(run_dir: Path) -> Path:
+def model_block(**enc) -> dict:
+    """``MODEL`` with encoder keys overridden."""
+    m = copy.deepcopy(MODEL)
+    m["encoder"].update(enc)
+    return m
+
+
+def build_run_dir(run_dir: Path, **enc) -> Path:
+    """The full-width model, random weights from ``SEED`` (the same weights
+    whatever ``enc`` selects), saved as a checkpoint under ``run_dir``."""
+    run_dir.mkdir(parents=True, exist_ok=True)
     vocab_path = run_dir / "vocab.json"
     default_vocab().to_json(vocab_path)
-    cfg = {"data": {"vocab": str(vocab_path)}, "features": FEATURES, "model": MODEL,
+    cfg = {"data": {"vocab": str(vocab_path)}, "features": FEATURES, "model": model_block(**enc),
            "decoding": DECODING}
     model = build_model(cfg, input_dim=MODEL["encoder"]["input_dim"], vocab_size=48)
     init_flax_style(model, torch.Generator().manual_seed(SEED))
@@ -253,7 +292,7 @@ def build_run_dir(run_dir: Path) -> Path:
         model.ctc_head.fc.weight.mul_(10.0)
     n_params = sum(p.numel() for p in model.parameters())
     save_checkpoint(run_dir, model.state_dict(), cfg)
-    print(f"[engine] tpu_fast_plus model: {n_params / 1e6:.2f} M params, "
+    print(f"[engine] tpu_fast_plus model {enc or ''}: {n_params / 1e6:.2f} M params, "
           f"checkpoint {run_dir / 'last'}")
     return run_dir / "last"
 
@@ -267,21 +306,26 @@ def post(port: int, path: str, payload: dict) -> dict:
         return json.load(r)
 
 
-def phase_main_path(ckpt: Path, rng: np.random.Generator):
-    """Phases 3 and 4, the counted run of the main path."""
+def phase_main_path(ckpt: Path, rng: np.random.Generator, sizes=(1, 4, 8), per_call=None):
+    """Phases 3 and 4 (and 11a), the counted run of the serving path: every
+    ``transcribe`` must move each launch count by ``per_call`` exactly
+    (log-mel once; the attention and depthwise kernels once a block when
+    the checkpoint selects them) and every other count not at all."""
+    per_call = {k: (per_call or {"logmel": 1}).get(k, 0) for k in COUNTERS}
     engines = {d: InferenceEngine.from_checkpoint(ckpt, decoder=d, device="cuda")
                for d in ("greedy", "beam")}
-    batches = {B: requests(rng, B) for B in (1, 4, 8)}
+    batches = {B: requests(rng, B) for B in sizes}
     server_reqs = requests(rng, 3)
 
-    feat.LOGMEL.launches = 0
+    reset_counts()
     texts = {}
     for B, reqs in batches.items():
         for d, eng in engines.items():
-            before = feat.LOGMEL.launches
+            before = counts()
             texts[B, d] = eng.transcribe(reqs)
-            check(feat.LOGMEL.launches == before + 1,
-                  f"{d} transcribe at B={B}: kernel launches {before} → {feat.LOGMEL.launches}")
+            moved = {k: v - before[k] for k, v in counts().items()}
+            check(moved == per_call, f"{d} transcribe at B={B}: launches moved {moved}, "
+                  f"expected {per_call}")
             check(len(texts[B, d]) == B, f"{d} B={B}: {len(texts[B, d])} hypotheses")
         print(f"[engine] B={B}: greedy {texts[B, 'greedy'][0][:40]!r} | "
               f"beam-50 {texts[B, 'beam'][0][:40]!r}")
@@ -307,11 +351,12 @@ def phase_main_path(ckpt: Path, rng: np.random.Generator):
         server.server_close()
         thread.join(timeout=30)
     check(not thread.is_alive(), "server thread did not stop")
-    launches = feat.LOGMEL.launches
+    launches = counts()
     n_calls = 2 * len(batches) + len(server_reqs)
-    check(launches == n_calls, f"kernel launched {launches} times in {n_calls} transcribes")
-    print(f"[server] 3 /transcribe answered, /stream/start → 501; "
-          f"main path launched logmel {launches} times in {n_calls} transcribe calls")
+    check(launches == {k: v * n_calls for k, v in per_call.items()},
+          f"{n_calls} transcribes launched {launches}, expected {per_call} each")
+    print(f"[server] 3 /transcribe answered, /stream/start → 501; main path launches in "
+          f"{n_calls} transcribe calls: { {k: v for k, v in launches.items() if v} }")
     direct = [engines["greedy"].transcribe([a])[0] for a in server_reqs]
     check(served == direct, f"server {served} != engine {direct}")
     return engines, batches, launches
@@ -398,13 +443,18 @@ TRAIN_GRAD_FLOOR = 1e-6  # … this: the attention key bias and the depthwise-co
 TRAIN_STAT_ATOL = 1e-5
 
 
+COUNTERS = {"logmel": feat.LOGMEL, "ctc_alpha": ctc.CTC_ALPHA, "ctc_beta": ctc.CTC_BETA,
+            "attention_fwd": attn.ATTN_FWD, "attention_bwd": attn.ATTN_BWD,
+            "depthwise_fwd": dwc.DW_FWD, "depthwise_bwd": dwc.DW_BWD}
+
+
 def reset_counts() -> None:
-    feat.LOGMEL.launches = ctc.CTC_ALPHA.launches = ctc.CTC_BETA.launches = 0
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
 
 
 def counts() -> dict:
-    return {"logmel": feat.LOGMEL.launches, "ctc_alpha": ctc.CTC_ALPHA.launches,
-            "ctc_beta": ctc.CTC_BETA.launches}
+    return {k: wrapper.launches for k, wrapper in COUNTERS.items()}
 
 
 @contextlib.contextmanager
@@ -605,6 +655,9 @@ def phase_train(root: Path, rng: np.random.Generator) -> dict:
         check(c["ctc_beta"] == n_train, f"{mode}: β launched {c['ctc_beta']} times")
         check(c["logmel"] == (n_train + n_eval if mode == "raw" else 0),
               f"{mode}: log-mel launched {c['logmel']} times")
+        check(all(c[k] == 0 for k in ("attention_fwd", "attention_bwd", "depthwise_fwd",
+                                      "depthwise_bwd")),
+              f"{mode}: the default configuration launched {c}")
         for d in ("last", "best"):
             check((root / f"run_{mode}" / d / "model.pt").exists(), f"{mode}: no {d}/ checkpoint")
         for k in total:
@@ -657,14 +710,14 @@ def train_batch(rng: np.random.Generator, B: int, frames: int, S: int) -> dict:
             "teacher_lengths": (lengths // 2).astype(np.int32)}
 
 
-def model_cfg(dropout: float) -> dict:
-    m = copy.deepcopy(MODEL)
+def model_cfg(dropout: float, **enc) -> dict:
+    m = model_block(**enc)
     m["encoder"]["dropout"] = m["ctc_dropout"] = dropout
     return {"model": m}
 
 
-def phase_train_parity(rng: np.random.Generator) -> None:
-    cfg = model_cfg(0.0)
+def phase_train_parity(rng: np.random.Generator, **enc) -> None:
+    cfg = model_cfg(0.0, **enc)
     cpu_model = build_model(cfg, input_dim=MODEL["encoder"]["input_dim"], vocab_size=48)
     init_flax_style(cpu_model, torch.Generator().manual_seed(SEED))
     gpu_model = copy.deepcopy(cpu_model).cuda()
@@ -675,7 +728,7 @@ def phase_train_parity(rng: np.random.Generator) -> None:
         total, losses = trainer._losses(model, trainer.to_device(batch, dev), LAMBDAS, BLANK, False, True, None)
         total.backward()
         out[name] = {k: float(v.detach()) for k, v in losses.items()}
-        print(f"[parity-train] {name}: one full-width step at B=5, 1280 frames in "
+        print(f"[parity-train] {name}{enc or ''}: one full-width step at B=5, 1280 frames in "
               f"{time.perf_counter() - t0:.2f} s (host clock, first call)")
     for k in ("total", "ctc", "distill"):
         check(abs(out["card"][k] - out["cpu"][k]) <= TRAIN_LOSS_RTOL * abs(out["cpu"][k]),
@@ -706,7 +759,8 @@ def phase_train_parity(rng: np.random.Generator) -> None:
     dbatch = trainer.to_device(batch, torch.device("cuda"))
     totals = [float(step(state, dbatch, LAMBDAS, None)[1]["total"]) for _ in range(20)]
     check(all(np.isfinite(totals)) and totals[-1] < totals[0], f"overfit totals {totals}")
-    print(f"[parity-train] 20 steps at lr 1e-3 on one batch: total {totals[0]:.4f} → {totals[-1]:.4f}")
+    print(f"[parity-train] {enc or ''} 20 steps at lr 1e-3 on one batch: total {totals[0]:.4f} → "
+          f"{totals[-1]:.4f}")
 
 
 def profile_step(step, step_ms: float, label: str, top: int = 6) -> None:
@@ -717,7 +771,10 @@ def profile_step(step, step_ms: float, label: str, top: int = 6) -> None:
     for _ in range(2):  # the first profiled run pays the tracer's start-up
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # device events only: a user annotation such as ``Optimizer.step#…`` is
+    # reported on the device too and would count its span twice
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"[rate] {label} profiler: device busy {dev_ms:.3f} ms = {100 * dev_ms / step_ms:.1f} % of "
           f"the p50 step; {sum(e.count for e in events)} device events; largest:")
@@ -725,9 +782,12 @@ def profile_step(step, step_ms: float, label: str, top: int = 6) -> None:
         print(f"[rate]   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:80]}")
 
 
-def phase_train_rate(rng: np.random.Generator, ctc_times: dict) -> None:
+def phase_train_rate(rng: np.random.Generator, ctc_times: dict, kernel_times=None, **enc) -> None:
+    """Step rate at both shapes; with ``kernel_times`` (phase 10's, the
+    fused/pallas configuration) also the four kernels' share of the step."""
     for label, (B, frames, S) in (("config", (5, 1280, 160)), ("flagship", (32, 768, 128))):
-        model = build_model(model_cfg(MODEL["encoder"]["dropout"]),
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(model_cfg(MODEL["encoder"]["dropout"], **enc),
                             input_dim=MODEL["encoder"]["input_dim"], vocab_size=48)
         init_flax_style(model, torch.Generator().manual_seed(SEED))
         model.cuda()
@@ -756,15 +816,234 @@ def phase_train_rate(rng: np.random.Generator, ctc_times: dict) -> None:
         fwd, bwd, upd = (float(np.percentile(split[:, i], 50)) for i in range(3))
         t = ctc_times[label]
         share = (t["alpha"] + t["beta"]) / step_ms
-        print(f"[rate] {label} B={B} {frames} frames (T'={frames // 2}, S={S}): step p50 {step_ms:.3f} ms "
+        name = f"{label}{' ' + str(enc) if enc else ''}"
+        print(f"[rate] {name} B={B} {frames} frames (T'={frames // 2}, S={S}): step p50 {step_ms:.3f} ms "
               f"(forward + loss {fwd:.3f}, backward {bwd:.3f}, optimizer {upd:.3f}; 10 warm steps, "
               f"host clock with a sync around each part) = {B / step_ms * 1e3:.2f} utterances/s; "
               f"CTC kernels α {t['alpha']:.4f} + β {t['beta']:.4f} ms = {share * 100:.2f} % of the step "
               f"(CUDA events, same shapes); peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_step(timed_step, step_ms, label)
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (this shape)")
+        if kernel_times is not None:
+            k = kernel_times[label]
+            L = MODEL["encoder"]["num_layers"]
+            four = L * (k["attention_fwd"] + k["attention_bwd"] + k["depthwise_fwd"] + k["depthwise_bwd"])
+            print(f"[rate] {name}: attention fwd {k['attention_fwd']:.4f} + bwd {k['attention_bwd']:.4f} "
+                  f"+ depthwise fwd {k['depthwise_fwd']:.4f} + bwd {k['depthwise_bwd']:.4f} ms, × {L} "
+                  f"blocks = {four:.3f} ms = {100 * four / step_ms:.2f} % of the step "
+                  f"(phase 10's CUDA-event times at this shape, with the dropout multiplier)")
+        profile_step(timed_step, step_ms, name)
         del model, opt, batch
         torch.cuda.empty_cache()
+
+
+# ------------------------------------- attention / depthwise (phases 10, 11)
+
+# (B, T') of the serving bucket, the config's training bucket and the
+# flagship bench shape; H 6, hd 48, C 288, K 15 at tpu_fast_plus width
+KERNEL_SHAPES = {"serving": (8, 625), "config": (5, 640), "flagship": (32, 384)}
+HEADS, HEAD_DIM, CHANNELS_DW, TAPS = 6, 48, 288, 15
+# the JAX package's own tolerances (tests/test_fused_attention.py:34,55)
+ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
+ATTN_GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
+DW_TOL = dict(atol=1e-5, rtol=1e-5)  # forward and dx
+DW_SUM_REL = 1e-4  # dw: sums over B·T terms, within this × the tensor's max-abs
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def max_err(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def attention_case(rng: np.random.Generator, B: int, T: int):
+    """q, k, v, g as (B, H, T, hd) views of (B, T, H, hd) tensors (the
+    projections' layout), a key mask with random lengths and one row of
+    length 1, and a dropout multiplier at the config's rate."""
+    dev = torch.device("cuda")
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, T, HEADS, HEAD_DIM)).astype(np.float32))
+                  .to(dev).transpose(1, 2) for _ in range(4))
+    lengths = rng.integers(T // 2, T + 1, size=B)
+    lengths[0], lengths[-1] = T, 1
+    mask = torch.from_numpy((np.arange(T)[None, :] < lengths[:, None]).astype(np.int32)).to(dev)
+    rate = MODEL["encoder"]["dropout"]
+    mult = torch.from_numpy(((rng.random((T, T)) >= rate) / (1 - rate)).astype(np.float32)).to(dev)
+    return q, k, v, g, mask, mult
+
+
+def phase_attention_depthwise(rng: np.random.Generator) -> dict:
+    """Phase 10: each new kernel against its plain version at the path's
+    shapes, and its times beside the plain version's and a library call's."""
+    dev = torch.device("cuda")
+    times, entries = {}, {}
+    for label, (B, T) in KERNEL_SHAPES.items():
+        q, k, v, g, mask, mult = attention_case(rng, B, T)
+        errs = {}
+        for m in (None, mult):
+            out, rmax, rsum = attn.ATTN_FWD(q, k, v, mask, m)
+            grads = attn.ATTN_BWD(q, k, v, out, g, rmax, rsum, mask, m)
+            want = attn.fused_attention_plain(q, k, v, mask, m)
+            want_grads = attn.fused_attention_bwd_plain(q, k, v, mask, m, g)
+            torch.cuda.synchronize()
+            tag = "mult" if m is not None else "no mult"
+            check(bool(torch.isfinite(out).all()), f"attention {label} {tag}: non-finite output")
+            check(close(out, want, **ATTN_TOL), f"attention forward {label} {tag}: max abs err "
+                  f"{max_err([out], [want])} > {ATTN_TOL}")
+            for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads):
+                check(close(a, b, **ATTN_GRAD_TOL), f"attention {name} {label} {tag}: max abs err "
+                      f"{max_err([a], [b])} > {ATTN_GRAD_TOL}")
+            pad = mask[:, None, :, None] == 0
+            check(bool((grads[1].masked_select(pad) == 0).all() and (grads[2].masked_select(pad) == 0).all()),
+                  f"attention {label} {tag}: padded keys got a nonzero dk / dv")
+            errs[tag] = (max_err([out], [want]), max_err(grads, want_grads))
+        # the train step's case (dropout on) is timed; serving runs no multiplier
+        m = None if label == "serving" else mult
+        out, rmax, rsum = attn.ATTN_FWD(q, k, v, mask, m)
+        additive = torch.where(mask[:, None, None, :] != 0, 0.0, -1e30)
+        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=additive)
+            torch.autograd.grad(o, (qg, kg, vg), g)
+
+        t = {
+            "attention_fwd": cuda_ms(lambda: attn.ATTN_FWD(q, k, v, mask, m)),
+            "attention_bwd": cuda_ms(lambda: attn.ATTN_BWD(q, k, v, out, g, rmax, rsum, mask, m)),
+            "attention_fwd_plain": cuda_ms(lambda: attn.fused_attention_plain(q, k, v, mask, m), iters=10),
+            "attention_bwd_plain": cuda_ms(lambda: attn.fused_attention_bwd_plain(q, k, v, mask, m, g),
+                                           iters=10),
+            "attention_fwd_library": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive)),
+            "attention_bwd_library": cuda_ms(sdpa_fwd_bwd),
+        }
+        n, stats = B * HEADS * T * HEAD_DIM, B * HEADS * T
+        extra = B * T + (T * T if m is not None else 0)  # the mask and the multiplier
+        b_fwd = bound(4 * B * HEADS * T * T * HEAD_DIM, 4 * (4 * n + 2 * stats + extra))
+        b_bwd = bound(10 * B * HEADS * T * T * HEAD_DIM, 4 * (8 * n + 2 * stats + extra))
+
+        x, gx = (torch.from_numpy(rng.normal(size=(B, T, CHANNELS_DW)).astype(np.float32)).to(dev)
+                 for _ in range(2))
+        w = torch.from_numpy(rng.normal(size=(TAPS, CHANNELS_DW)).astype(np.float32) / 4).to(dev)
+        bias = torch.from_numpy(rng.normal(size=(CHANNELS_DW,)).astype(np.float32)).to(dev)
+        y = dwc.DW_FWD(x, w, bias)
+        dx, dwp = dwc.DW_BWD(x, w, gx)
+        want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, gx)
+        want_y = dwc.depthwise_conv1d_plain(x, w, bias)
+        torch.cuda.synchronize()
+        dw, want_dw = dwp.sum(dim=(0, 1)), want_dwp.sum(dim=0)
+        dw_atol = DW_SUM_REL * float(want_dw.abs().max())
+        check(close(y, want_y, **DW_TOL), f"depthwise forward {label}: {max_err([y], [want_y])}")
+        check(close(dx, want_dx, **DW_TOL), f"depthwise dx {label}: {max_err([dx], [want_dx])}")
+        check(close(dw, want_dw, atol=dw_atol, rtol=0), f"depthwise dw {label}: {max_err([dw], [want_dw])}")
+        pad = TAPS // 2
+        xc = x.transpose(1, 2).contiguous()
+        wc = w.t().contiguous()[:, None, :]
+        xcg, wcg = xc.clone().requires_grad_(True), wc.clone().requires_grad_(True)
+        gc = gx.transpose(1, 2).contiguous()
+
+        def conv_fwd_bwd():
+            o = F.conv1d(xcg, wcg, bias, padding=pad, groups=CHANNELS_DW)
+            torch.autograd.grad(o, (xcg, wcg), gc)
+
+        t.update({
+            "depthwise_fwd": cuda_ms(lambda: dwc.DW_FWD(x, w, bias)),
+            "depthwise_bwd": cuda_ms(lambda: dwc.DW_BWD(x, w, gx)),
+            "depthwise_fwd_plain": cuda_ms(lambda: dwc.depthwise_conv1d_plain(x, w, bias), iters=10),
+            "depthwise_bwd_plain": cuda_ms(lambda: dwc.depthwise_conv1d_bwd_plain(x, w, gx), iters=10),
+            "depthwise_fwd_library": cuda_ms(lambda: F.conv1d(xc, wc, bias, padding=pad, groups=CHANNELS_DW)),
+            "depthwise_bwd_library": cuda_ms(conv_fwd_bwd),
+        })
+        nx = B * T * CHANNELS_DW
+        b_dwf = bound(2 * nx * TAPS, 4 * (2 * nx + TAPS * CHANNELS_DW + CHANNELS_DW))
+        # the function's bytes: x and g read, dx written, w read, dw as (B, K, C)
+        # partials as the Pallas kernel writes them; the port's per-tile
+        # partials are its tiling's cost, not the bound's
+        b_dwb = bound(4 * nx * TAPS, 4 * (3 * nx + TAPS * CHANNELS_DW + B * TAPS * CHANNELS_DW))
+        times[label] = t
+        dw_err = (max_err([y], [want_y]), max(max_err([dx], [want_dx]), max_err([dw], [want_dw])))
+        rows = (("attention_fwd", errs["no mult" if m is None else "mult"][0], b_fwd),
+                ("attention_bwd", errs["no mult" if m is None else "mult"][1], b_bwd),
+                ("depthwise_fwd", dw_err[0], b_dwf), ("depthwise_bwd", dw_err[1], b_dwb))
+        for name, err, (bnd, by) in rows:
+            print(f"[kernels] {label} B={B} T'={T} {name}{' (dropout mult)' if m is not None and 'attention' in name else ''}: "
+                  f"max_abs_err {err:.3e}; kernel {t[name]:.4f} ms, plain {t[name + '_plain']:.4f} ms, "
+                  f"library {t[name + '_library']:.4f} ms, bound {bnd:.5f} ms ({by}); "
+                  f"{bnd / t[name] * 100:.1f} % of the bound")
+            if label == "config":
+                entries[name] = {
+                    "name": name, "route": "cuda",
+                    "source": f"ssd_tpu_torch/csrc/{'attention' if 'attention' in name else 'depthwise_conv'}.cu",
+                    "replaces": {"attention_fwd": "ssd_tpu/ops/attention.py:166",
+                                 "attention_bwd": "ssd_tpu/ops/attention.py:187",
+                                 "depthwise_fwd": "ssd_tpu/ops/depthwise_conv.py:84",
+                                 "depthwise_bwd": "ssd_tpu/ops/depthwise_conv.py:107"}[name],
+                    "launches": None, "max_abs_err": err, "ms": t[name],
+                    "plain_ms": t[name + "_plain"], "bound_ms": bnd, "bound_by": by,
+                    "library_ms": t[name + "_library"],
+                }
+        print(f"[kernels] {label}: attention errors (forward, gradients) {errs}; library = "
+              f"F.scaled_dot_product_attention with the additive key mask (forward; forward + backward "
+              f"beside the backward kernel) and F.conv1d(groups=C) on (B, C, T) (forward; forward + "
+              f"backward), timed only")
+    return {"entries": entries, "times": times}
+
+
+def phase_fused_serving(run_dir: Path, default_ckpt: Path, rng: np.random.Generator) -> dict:
+    """Phase 11a: the fused/pallas checkpoint through the engine and the
+    server, then its log-probs against the CPU and the default config."""
+    ckpt = build_run_dir(run_dir, **FUSED)
+    check(all(torch.equal(a, b) for a, b in zip(load_checkpoint(ckpt)["state_dict"].values(),
+                                                 load_checkpoint(default_ckpt)["state_dict"].values())),
+          "the fused/pallas checkpoint's weights differ from the default one's")
+    L = MODEL["encoder"]["num_layers"]
+    engines, batches, launches = phase_main_path(
+        ckpt, rng, sizes=(1, 8), per_call={"logmel": 1, "attention_fwd": L, "depthwise_fwd": L})
+    phase_parity(ckpt, engines, batches)
+    default = InferenceEngine.from_checkpoint(default_ckpt, device="cuda")
+    for B, reqs in batches.items():
+        lp, ol = engines["greedy"].forward(reqs)
+        lp_d, ol_d = default.forward(reqs)
+        err = float((lp - lp_d).abs().max())
+        check(torch.equal(ol, ol_d), f"out lengths fused vs default at B={B}")
+        check(close(lp, lp_d, **LOGPROB_TOL),
+              f"fused/pallas vs default log-probs at B={B}: max abs err {err} > {LOGPROB_TOL}")
+        fused_text = engines["greedy"].decode(lp, ol)[:B]
+        check(fused_text == default.decode(lp_d, ol_d)[:B], f"greedy text fused vs default at B={B}")
+        print(f"[fused] B={B}: log-probs vs the default configuration on the same weights, on the "
+              f"card: max abs err {err:.3e} (tol {LOGPROB_TOL}); greedy text equal")
+    return launches
+
+
+def phase_fused_train(root: Path, rng: np.random.Generator) -> dict:
+    """Phase 11b: one epoch of 2 overfit batches with the two keys set,
+    launch counts per step, then the trained checkpoint served."""
+    cfg = load_config(root / "config.json")
+    cfg["model"]["encoder"].update(FUSED)
+    cfg["optim"]["max_epochs"] = 1
+    L = MODEL["encoder"]["num_layers"]
+    t0 = time.perf_counter()
+    reset_counts()
+    summary = trainer.train_from_config(cfg, root / "run_fused", overfit_batches=2, device="cuda")
+    c = counts()
+    n_train, n_eval = check_epoch(summary["history"][0], "fused")
+    check(n_train == 2 and n_eval == 2, f"fused: {n_train} train / {n_eval} eval steps")
+    want = {"logmel": 0, "ctc_alpha": n_train + n_eval, "ctc_beta": n_train,
+            "attention_fwd": L * (n_train + n_eval), "depthwise_fwd": L * (n_train + n_eval),
+            "attention_bwd": L * n_train, "depthwise_bwd": L * n_train}
+    check(c == want, f"fused training launched {c}, expected {want}")
+    h = summary["history"][0]
+    print(f"[fused-train] 1 epoch, {n_train} train + {n_eval} eval steps in "
+          f"{time.perf_counter() - t0:.2f} s; train total {h['train']['total']:.4f}, val total "
+          f"{h['val']['total']:.4f}; launches {c}")
+    engine = InferenceEngine.from_checkpoint(root / "run_fused" / "last", device="cuda")
+    before = counts()
+    hyps = engine.transcribe(requests(rng, 2))
+    check(len(hyps) == 2 and all(isinstance(x, str) for x in hyps), f"served {hyps}")
+    check(counts()["attention_fwd"] == before["attention_fwd"] + L,
+          "the trained checkpoint was not served through the fused attention kernel")
+    print(f"[fused-train] trained checkpoint served: {[x[:30] for x in hyps]}")
+    return c
 
 
 def main() -> int:
@@ -775,9 +1054,9 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     seconds = {}
 
-    def timed(name, fn, *args):
+    def timed(name, fn, *args, **kwargs):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         seconds[name] = time.perf_counter() - t0
         print(f"[time] {name}: {seconds[name]:.2f} s")
         return out
@@ -787,9 +1066,8 @@ def main() -> int:
     run_dir = Path(tempfile.mkdtemp(prefix="ssd_chip_smoke_"))
     try:
         ckpt = build_run_dir(run_dir)
-        reset_counts()
         engines, batches, launches = timed("engine+server", phase_main_path, ckpt, rng)
-        entry["launches"] = launches
+        entry["launches"] = launches["logmel"]
         timed("parity", phase_parity, ckpt, engines, batches)
         timed("latency", phase_latency, engines, rng)
         del engines
@@ -799,12 +1077,22 @@ def main() -> int:
         train_counts = timed("train", phase_train, train_dir, rng)
         timed("train parity", phase_train_parity, rng)
         timed("train rate", phase_train_rate, rng, ctc_out["times"])
+        new_out = timed("attention+depthwise kernels", phase_attention_depthwise, rng)
+        served = timed("fused serving", phase_fused_serving, run_dir / "fused", ckpt, rng)
+        trained = timed("fused train", phase_fused_train, train_dir, rng)
+        timed("fused train parity", phase_train_parity, rng, **FUSED)
+        timed("fused train rate", phase_train_rate, rng, ctc_out["times"], new_out["times"], **FUSED)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     kernels = [entry]
     for name in ("alpha", "beta"):
         e = ctc_out["entries"][name]
         e["launches"] = train_counts[f"ctc_{name}"]
+        kernels.append(e)
+    for name in ("attention_fwd", "attention_bwd", "depthwise_fwd", "depthwise_bwd"):
+        e = new_out["entries"][name]
+        e["launches"] = served[name] + trained[name]  # phase 11's two counted runs
+        check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
     print(f"[time] total {sum(seconds.values()):.2f} s")
     print(json.dumps({"kernels": kernels}))

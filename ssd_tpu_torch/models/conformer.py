@@ -16,6 +16,13 @@ from the caller's ``generator``) and ``MaskedBatchNorm``'s batch statistics.
 Public functions keep the JAX package's channel-last ``(B, T, F)`` layout;
 convolutions transpose inside. LayerNorms use flax's epsilon (1e-6), not
 torch's default.
+
+Two config keys pick the implementation of two ops without changing the
+parameters, so a checkpoint of either choice loads into the other:
+``attention_impl`` (``flax``: the composite softmax attention; ``fused``:
+``ops/attention.py``, the CUDA kernels on the card) and ``depthwise_impl``
+(``lax``: ``nn.Conv1d``; ``pallas``: ``ops/depthwise_conv.py``, the CUDA
+stencil on the card, on the channel-last activation).
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssd_tpu_torch.ops.attention import fused_attention
+from ssd_tpu_torch.ops.depthwise_conv import depthwise_conv1d
 from ssd_tpu_torch.ops.dropout import dropout, keep_multiplier
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -54,9 +63,9 @@ class EncoderConfig:
     compute_dtype: str = "float32"
     remat: bool = False
     remat_policy: str = "full"
-    attention_impl: str = "flax"
+    attention_impl: str = "flax"  # flax | fused (same parameters)
     attn_remat: bool = False
-    depthwise_impl: str = "lax"
+    depthwise_impl: str = "lax"  # lax | pallas (same parameters)
     quantize: str = "none"
     sequence_parallel: bool = False
     scan_layers: bool = False
@@ -173,10 +182,18 @@ class MaskedBatchNorm(nn.Module):
 
 
 class _ConvModule(nn.Module):
-    def __init__(self, d_model: int, kernel_size: int, conv_norm: str, dropout: float = 0.0):
+    def __init__(
+        self,
+        d_model: int,
+        kernel_size: int,
+        conv_norm: str,
+        dropout: float = 0.0,
+        depthwise_impl: str = "lax",
+    ):
         super().__init__()
         self.conv_norm = conv_norm
         self.dropout = dropout
+        self.depthwise_impl = depthwise_impl
         self.ln = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.pw1 = nn.Linear(d_model, 2 * d_model)
         self.dw = nn.Conv1d(
@@ -196,7 +213,13 @@ class _ConvModule(nn.Module):
         # zero padded frames so the depthwise conv sees the same zeros a
         # shorter bucket would — exact padding invariance
         x = x.masked_fill(~pad_mask[:, :, None], 0.0)
-        x = self.dw(x.transpose(1, 2)).transpose(1, 2)
+        if self.depthwise_impl == "pallas":
+            # the stencil runs channel-last; self.dw only holds weight
+            # (C, 1, K) and bias (C,), nn.Conv's names (DepthwiseConv1d's)
+            w = self.dw.weight[:, 0, :].t().contiguous()
+            x = depthwise_conv1d(x, w, self.dw.bias)
+        else:
+            x = self.dw(x.transpose(1, 2)).transpose(1, 2)
         x = self.bn(x, pad_mask, train) if self.conv_norm == "batch" else self.cn(x)
         return _drop(self.pw2(F.silu(x)), self.dropout, train, generator)
 
@@ -204,15 +227,19 @@ class _ConvModule(nn.Module):
 class _MultiHeadAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` semantics: q scaled by hd^-½
     before the dot, masked keys set to ``finfo(float32).min`` (a fully
-    masked row becomes uniform, never NaN), fp32 softmax.
+    masked row becomes uniform, never NaN), fp32 softmax. With
+    ``impl="fused"`` the same projections feed ``ops.attention``'s fused
+    attention instead (the Pallas kernel's numerics: scale after the dot,
+    masked keys at −1e30).
 
     Training dropout on the weights is flax's default ``broadcast_dropout``:
     ONE (T, T) keep-mask shared by every batch row and head, applied to the
     softmax weights before ``·v``."""
 
-    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, impl: str = "flax"):
         super().__init__()
         self.dropout = dropout
+        self.impl = impl
         if d_model % num_heads:
             raise ValueError(f"d_model={d_model} not divisible by num_heads={num_heads}")
         self.num_heads = num_heads
@@ -230,23 +257,27 @@ class _MultiHeadAttention(nn.Module):
         q = self.query(x).view(B, T, H, hd).transpose(1, 2)  # (B, H, T, hd)
         k = self.key(x).view(B, T, H, hd).transpose(1, 2)
         v = self.value(x).view(B, T, H, hd).transpose(1, 2)
-        q = q / (hd ** 0.5)
-        scores = torch.matmul(q, k.transpose(-1, -2))  # (B, H, T, T)
-        big_neg = torch.finfo(scores.dtype).min
-        scores = scores.masked_fill(~pad_mask[:, None, None, :], big_neg)
-        w = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        mult = None
         if train and self.dropout > 0.0:
-            w = w * keep_multiplier((T, T), self.dropout, generator, w.device, w.dtype)
-        ctx = torch.matmul(w, v).transpose(1, 2).reshape(B, T, D)
-        return self.out(ctx)
+            mult = keep_multiplier((T, T), self.dropout, generator, v.device, v.dtype)
+        if self.impl == "fused":
+            ctx = fused_attention(q, k, v, pad_mask, mult)
+        else:
+            q = q / (hd ** 0.5)
+            scores = torch.matmul(q, k.transpose(-1, -2))  # (B, H, T, T)
+            big_neg = torch.finfo(scores.dtype).min
+            scores = scores.masked_fill(~pad_mask[:, None, None, :], big_neg)
+            w = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+            ctx = torch.matmul(w if mult is None else w * mult, v)
+        return self.out(ctx.transpose(1, 2).reshape(B, T, D))
 
 
 class _SelfAttention(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, impl: str = "flax"):
         super().__init__()
         self.dropout = dropout
         self.ln = nn.LayerNorm(d_model, eps=_LN_EPS)
-        self.mha = _MultiHeadAttention(d_model, num_heads, dropout)
+        self.mha = _MultiHeadAttention(d_model, num_heads, dropout, impl)
 
     def forward(
         self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None
@@ -260,8 +291,10 @@ class ConformerBlock(nn.Module):
         super().__init__()
         p = cfg.dropout
         self.ffn1 = _FeedForward(cfg.d_model, cfg.ffn_dim, p)
-        self.attn = _SelfAttention(cfg.d_model, cfg.num_heads, p)
-        self.conv = _ConvModule(cfg.d_model, cfg.depthwise_conv_kernel_size, cfg.conv_norm, p)
+        self.attn = _SelfAttention(cfg.d_model, cfg.num_heads, p, cfg.attention_impl)
+        self.conv = _ConvModule(
+            cfg.d_model, cfg.depthwise_conv_kernel_size, cfg.conv_norm, p, cfg.depthwise_impl
+        )
         self.ffn2 = _FeedForward(cfg.d_model, cfg.ffn_dim, p)
         self.final_ln = nn.LayerNorm(cfg.d_model, eps=_LN_EPS)
 

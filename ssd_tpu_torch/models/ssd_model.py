@@ -2,12 +2,14 @@
 ``ssd_tpu/models/ssd_model.py``).
 
 ``build_model`` reads the same config keys with the same defaults and the
-same validation as the JAX package. Values that select a path this slice
-does not port raise ``NotImplementedError`` naming the ROADMAP item that
-will; memory and parallelism knobs that leave single-device inference math
-unchanged (``remat``, ``remat_policy``, ``attn_remat``,
-``sequence_parallel``, ``scan_layers``) are accepted and ignored — the
-weight bridge unstacks a ``scan_layers`` tree.
+same validation as the JAX package. ``attention_impl: fused`` and
+``depthwise_impl: pallas`` select the port's fused attention and depthwise
+stencil (CUDA kernels on the card), with the same parameters. Values that
+select a path the port does not have yet raise ``NotImplementedError``
+naming the ROADMAP item that will; memory and parallelism knobs that leave
+single-device inference math unchanged (``remat``, ``remat_policy``,
+``attn_remat``, ``sequence_parallel``, ``scan_layers``) are accepted and
+ignored — the weight bridge unstacks a ``scan_layers`` tree.
 """
 
 from __future__ import annotations
@@ -101,10 +103,6 @@ def build_model(cfg: Dict[str, Any], input_dim: int, vocab_size: int) -> SSDMode
             f"model.encoder.quantize must be 'none', 'int8', or "
             f"'int8_prequant', got {encoder_cfg.quantize!r}"
         )
-    if encoder_cfg.attention_impl == "fused":
-        raise _not_ported("attention_impl", "fused", "queue 2 items 4-5")
-    if encoder_cfg.depthwise_impl == "pallas":
-        raise _not_ported("depthwise_impl", "pallas", "queue 2 items 6-7")
     if encoder_cfg.quantize != "none":
         raise _not_ported("quantize", encoder_cfg.quantize, "queue 1 item 9")
     if encoder_cfg.compute_dtype == "bfloat16":

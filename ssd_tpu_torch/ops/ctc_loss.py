@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from ssd_tpu_torch.utils.cuda_build import CudaLibrary
+from ssd_tpu_torch.utils.cuda_build import CudaKernel, CudaLibrary, check_cuda_tensor
 
 NEG_INF = -1.0e30  # safe -inf surrogate: logaddexp stays finite
 
@@ -128,48 +128,23 @@ _CTC_LIBRARY = CudaLibrary(
     {
         "ssd_ctc_alpha_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
         "ssd_ctc_beta_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-        "ssd_ctc_error_string": ([_I], ctypes.c_char_p),
     },
+    error_string="ssd_ctc_error_string",
 )
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-class _CTCKernel:
-    """Shared checks, launch and count of the two wrappers.
-
-    ``launches`` is a plain integer, incremented once per kernel launch and
-    nowhere else, so a run can show that the main path reached the kernel.
-    """
-
-    library = _CTC_LIBRARY
+class _CTCKernel(CudaKernel):
+    """Shared shape check of the two wrappers; launch and count are
+    :class:`CudaKernel`'s."""
 
     def __init__(self) -> None:
-        self.launches = 0
+        super().__init__(_CTC_LIBRARY)
 
     def _lp_shape(self, lp_ext: torch.Tensor) -> tuple:
         if lp_ext.dim() != 3 or min(lp_ext.shape) < 1:
             raise ValueError(f"lp_ext must be a non-empty (T, B, S2) tensor, got {tuple(lp_ext.shape)}")
-        _check("lp_ext", lp_ext, tuple(lp_ext.shape), torch.float32)
+        check_cuda_tensor("lp_ext", lp_ext, tuple(lp_ext.shape))
         return tuple(lp_ext.shape)
-
-    def _launch(self, fn: str, device: torch.device, *args) -> None:
-        lib = self.library.load()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = getattr(lib, fn)(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"{fn} failed: {lib.ssd_ctc_error_string(err).decode()}")
-        self.launches += 1
 
 
 class CTCAlphaKernel(_CTCKernel):
@@ -178,11 +153,9 @@ class CTCAlphaKernel(_CTCKernel):
 
     def __call__(self, lp_ext: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         T, B, S2 = self._lp_shape(lp_ext)
-        _check("skip", skip, (B, S2), torch.float32)
-        if skip.device != lp_ext.device:
-            raise ValueError("skip and lp_ext must be on the same device")
+        check_cuda_tensor("skip", skip, (B, S2), device=lp_ext.device)
         out = torch.empty_like(lp_ext)
-        self._launch(
+        self.launch(
             "ssd_ctc_alpha_launch", lp_ext.device,
             lp_ext.data_ptr(), skip.data_ptr(), out.data_ptr(), T, B, S2,
         )
@@ -201,13 +174,11 @@ class CTCBetaKernel(_CTCKernel):
         lengths: torch.Tensor,
     ) -> torch.Tensor:
         T, B, S2 = self._lp_shape(lp_ext)
-        _check("skip_from", skip_from, (B, S2), torch.float32)
-        _check("beta_final", beta_final, (B, S2), torch.float32)
-        _check("lengths", lengths, (B,), torch.int32)
-        if any(t.device != lp_ext.device for t in (skip_from, beta_final, lengths)):
-            raise ValueError("skip_from, beta_final, lengths and lp_ext must be on one device")
+        check_cuda_tensor("skip_from", skip_from, (B, S2), device=lp_ext.device)
+        check_cuda_tensor("beta_final", beta_final, (B, S2), device=lp_ext.device)
+        check_cuda_tensor("lengths", lengths, (B,), torch.int32, lp_ext.device)
         out = torch.empty_like(lp_ext)
-        self._launch(
+        self.launch(
             "ssd_ctc_beta_launch", lp_ext.device,
             lp_ext.data_ptr(), skip_from.data_ptr(), beta_final.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), T, B, S2,

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ssd_tpu_torch.ops import mel as melmod
-from ssd_tpu_torch.utils.cuda_build import CudaLibrary
+from ssd_tpu_torch.utils.cuda_build import CudaKernel, CudaLibrary
 
 _DB_FLOOR = 1e-10
 _TOP_DB = 80.0
@@ -177,15 +177,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-class LogmelKernel:
-    """Wrapper of ``csrc/logmel.cu``: checks, allocates, launches, counts.
-
-    ``launches`` is a plain integer, incremented once per kernel launch and
-    nowhere else, so a run can show that the main path reached the kernel.
-    """
+class LogmelKernel(CudaKernel):
+    """Wrapper of ``csrc/logmel.cu``: checks, allocates, launches, counts
+    (``launches``, :class:`CudaKernel`'s)."""
 
     def __init__(self) -> None:
-        self.library = CudaLibrary(
+        super().__init__(CudaLibrary(
             "ssd_logmel",
             "logmel.cu",
             {
@@ -193,10 +190,9 @@ class LogmelKernel:
                 "ssd_logmel_bins_pad": ([], _I),
                 "ssd_logmel_mels_pad": ([], _I),
                 "ssd_logmel_chunk": ([], _I),
-                "ssd_cuda_error_string": ([_I], ctypes.c_char_p),
             },
-        )
-        self.launches = 0
+            error_string="ssd_cuda_error_string",
+        ))
         self._consts: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, int]] = {}
         self._lock = threading.Lock()
 
@@ -248,17 +244,11 @@ class LogmelKernel:
         # shared memory grows with hop; a request past the device's limit
         # makes cudaFuncSetAttribute fail, which raises below
         out = torch.empty((B * C, T, cfg.n_mels), dtype=torch.float32, device=emg.device)
-        with torch.cuda.device(emg.device):
-            stream = torch.cuda.current_stream(emg.device).cuda_stream
-            err = lib.ssd_logmel_launch(
-                emg.data_ptr(), dft.data_ptr(), mel.data_ptr(), out.data_ptr(),
-                B, L, C, T, cfg.hop_length, n_fft_pad, cfg.n_mels, stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"logmel kernel launch failed: {lib.ssd_cuda_error_string(err).decode()}"
-            )
-        self.launches += 1
+        self.launch(
+            "ssd_logmel_launch", emg.device,
+            emg.data_ptr(), dft.data_ptr(), mel.data_ptr(), out.data_ptr(),
+            B, L, C, T, cfg.hop_length, n_fft_pad, cfg.n_mels,
+        )
         return out.view(B, C, T, cfg.n_mels)
 
 

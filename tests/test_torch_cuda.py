@@ -1,5 +1,6 @@
-"""Card-only tests of the port's CUDA kernels (log-mel, CTC α and β) against
-their plain PyTorch versions. They skip without a card. This file imports neither JAX nor
+"""Card-only tests of the port's CUDA kernels (log-mel, CTC α and β, fused
+attention and the depthwise stencil, forward and backward) against their
+plain PyTorch versions. They skip without a card. This file imports neither JAX nor
 ``ssd_tpu``, so it also runs on a card machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -9,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from ssd_tpu_torch.ops import attention as attn
 from ssd_tpu_torch.ops import ctc_loss as ctc
+from ssd_tpu_torch.ops import depthwise_conv as dwc
 from ssd_tpu_torch.ops import featurizer as feat
 
 pytestmark = pytest.mark.cuda
@@ -114,3 +117,90 @@ def test_ctc_wrappers_reject_bad_cuda_input(cuda):
         ctc.CTC_BETA(lp, skip, skip, lens.long())
     with pytest.raises(ValueError, match="CUDA"):
         ctc.CTC_BETA(lp, skip, skip.cpu(), lens)
+
+
+DW_TOL = dict(atol=1e-5, rtol=1e-5)  # forward and dx
+DW_SUM_REL = 1e-4  # dw partials summed over B·T terms: of the tensor's max-abs
+ATTN_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_fused_attention.py's forward tolerance
+ATTN_GRAD_TOL = dict(atol=2e-5, rtol=1e-4)  # … and its gradient tolerance
+
+
+@pytest.mark.parametrize(
+    "B,T,C,K",
+    [(5, 640, 288, 15), (32, 384, 288, 15), (2, 37, 40, 3), (3, 100, 50, 31), (2, 1, 288, 15)],
+)
+def test_depthwise_kernels_match_plain(cuda, B, T, C, K):
+    gen = torch.Generator().manual_seed(T)
+    x, g = (torch.randn((B, T, C), generator=gen).to(cuda) for _ in range(2))
+    w, b = torch.randn((K, C), generator=gen).to(cuda), torch.randn((C,), generator=gen).to(cuda)
+    before = (dwc.DW_FWD.launches, dwc.DW_BWD.launches)
+    y = dwc.DW_FWD(x, w, b)
+    dx, dwp = dwc.DW_BWD(x, w, g)
+    torch.cuda.synchronize()
+    assert (dwc.DW_FWD.launches, dwc.DW_BWD.launches) == (before[0] + 1, before[1] + 1)
+    want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, g)
+    torch.testing.assert_close(y, dwc.depthwise_conv1d_plain(x, w, b), **DW_TOL)
+    torch.testing.assert_close(dx, want_dx, **DW_TOL)
+    dw, want_dw = dwp.sum(dim=(0, 1)), want_dwp.sum(dim=0)
+    torch.testing.assert_close(dw, want_dw, rtol=0, atol=DW_SUM_REL * float(want_dw.abs().max()))
+
+
+def _attn_case(B, T, H, hd, cuda, drop):
+    """q, k, v as the model hands them over — (B, H, T, hd) views of
+    (B, T, H, hd) projections — a key mask with one row of length 1, and a
+    dropout multiplier or None."""
+    gen = torch.Generator().manual_seed(T + hd)
+    q, k, v, g = (torch.randn((B, T, H, hd), generator=gen).to(cuda).transpose(1, 2)
+                  for _ in range(4))
+    lengths = torch.randint(max(T // 2, 1), T + 1, (B,), generator=gen)
+    lengths[-1] = 1
+    mask = (torch.arange(T)[None, :] < lengths[:, None]).to(torch.int32).to(cuda)
+    mult = ((torch.rand((T, T), generator=gen) < 0.88).float() / 0.88).to(cuda) if drop else None
+    return q, k, v, g, mask, mult
+
+
+@pytest.mark.parametrize(
+    "B,T,H,hd,drop",
+    [(5, 640, 6, 48, False), (5, 640, 6, 48, True), (8, 625, 6, 48, False),
+     (2, 70, 2, 16, True), (2, 1, 6, 48, False), (2, 100, 2, 64, True)],
+)
+def test_attention_kernels_match_plain(cuda, B, T, H, hd, drop):
+    q, k, v, g, mask, mult = _attn_case(B, T, H, hd, cuda, drop)
+    before = (attn.ATTN_FWD.launches, attn.ATTN_BWD.launches)
+    out, row_max, row_sum = attn.ATTN_FWD(q, k, v, mask, mult)
+    dq, dk, dv = attn.ATTN_BWD(q, k, v, out, g, row_max, row_sum, mask, mult)
+    torch.cuda.synchronize()
+    assert (attn.ATTN_FWD.launches, attn.ATTN_BWD.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, attn.fused_attention_plain(q, k, v, mask, mult), **ATTN_TOL)
+    want = attn.fused_attention_bwd_plain(q, k, v, mask, mult, g)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(got, w, **ATTN_GRAD_TOL, msg=name)
+    # padded keys get exactly zero dk and dv
+    pad = mask[:, None, :, None] == 0
+    assert bool((dk.masked_select(pad) == 0).all() and (dv.masked_select(pad) == 0).all())
+
+
+def test_attention_and_depthwise_wrappers_reject_bad_cuda_input(cuda):
+    q = torch.zeros((2, 4, 8, 3, 16), device=cuda)[..., 0, :].transpose(1, 2)  # (2, 8, 4, 16)
+    mask = torch.ones((2, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        attn.ATTN_FWD(q.double(), q.double(), q.double(), mask)
+    with pytest.raises(TypeError):
+        attn.ATTN_FWD(q, q, q, mask.long())
+    with pytest.raises(ValueError, match="unit stride"):
+        attn.ATTN_FWD(q.transpose(-1, -2), q.transpose(-1, -2), q.transpose(-1, -2), mask)
+    with pytest.raises(ValueError, match="shape"):
+        attn.ATTN_FWD(q, q, q, mask, torch.ones((3, 3), device=cuda))
+    wide = torch.zeros((2, 1, 8, 65), device=cuda)
+    with pytest.raises(ValueError, match="hd ≤ 64"):
+        attn.ATTN_FWD(wide, wide, wide, torch.ones((2, 8), dtype=torch.int32, device=cuda))
+    x = torch.zeros((2, 10, 8), device=cuda)
+    w, b = torch.zeros((5, 8), device=cuda), torch.zeros((8,), device=cuda)
+    with pytest.raises(TypeError):
+        dwc.DW_FWD(x.double(), w.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        dwc.DW_FWD(x.transpose(0, 1).contiguous().transpose(0, 1), w, b)
+    with pytest.raises(ValueError, match="odd kernel size"):
+        dwc.DW_FWD(x, torch.zeros((4, 8), device=cuda), b)
+    with pytest.raises(ValueError, match="K ≤"):
+        dwc.DW_BWD(x, torch.zeros((33, 8), device=cuda), x)

@@ -120,6 +120,29 @@ def test_scan_layers_tree_through_bridge():
     [
         {"attention_impl": "fused"},
         {"depthwise_impl": "pallas"},
+        {"attention_impl": "fused", "depthwise_impl": "pallas"},
+    ],
+    ids=lambda o: "+".join(o),
+)
+def test_fused_attention_and_pallas_depthwise_match_jax(override):
+    """The two implementation keys keep the parameter tree: the same flax
+    weights through ``state_dict_from_flax`` give the JAX model's log-probs,
+    the JAX side running its Pallas kernels in interpret mode."""
+    cfg = _cfg(**override)
+    jm, params, stats = _variables(cfg, seed=4)
+    x, lengths = _inputs()
+    want_lp, want_ol, want_st = jm.apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x), jnp.asarray(lengths), train=False
+    )
+    got_lp, got_ol, got_st = _run_torch(_torch_model(cfg, params, stats), x, lengths)
+    np.testing.assert_array_equal(got_ol, np.asarray(want_ol))
+    np.testing.assert_allclose(got_lp, np.asarray(want_lp), **LP_TOL)
+    np.testing.assert_allclose(got_st, np.asarray(want_st), **LP_TOL)
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
         {"quantize": "int8"},
         {"compute_dtype": "bfloat16"},
         {"pipeline_microbatches": 2, "conv_norm": "layer"},

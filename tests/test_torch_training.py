@@ -42,11 +42,12 @@ NOISE_ONLY = (".attn.mha.key.bias", ".conv.dw.bias")
 STAT_ATOL = 1e-5
 
 
-def _cfg(grad_accum=1, dropout=0.0):
+def _cfg(grad_accum=1, dropout=0.0, **enc):
     return {
         "model": {
             "encoder": dict(d_model=48, num_layers=2, num_heads=4, ffn_dim=96,
-                            depthwise_conv_kernel_size=5, subsample_factor=2, dropout=dropout),
+                            depthwise_conv_kernel_size=5, subsample_factor=2, dropout=dropout,
+                            **enc),
             "projection_dim": TEACHER_DIM,
             "ctc_dropout": dropout,
         },
@@ -104,7 +105,17 @@ def _assert_tree_close(got_model, want_sd, atol_rel=None, atol=None, keys=None):
 def test_one_train_step_matches_jax():
     """Losses, every parameter gradient, the updated batch statistics and
     the updated parameters after one step, from the same weights."""
-    cfg = _cfg()
+    _check_one_train_step(_cfg())
+
+
+def test_one_train_step_matches_jax_fused_attention_pallas_depthwise():
+    """The same step with ``attention_impl: fused`` and ``depthwise_impl:
+    pallas`` on both sides: the port's fused attention and depthwise
+    autograd Functions against the Pallas kernels' custom VJPs."""
+    _check_one_train_step(_cfg(attention_impl="fused", depthwise_impl="pallas"))
+
+
+def _check_one_train_step(cfg):
     jmodel, tx, jstate = _jax_setup(cfg)
     batch = _batch()
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
