@@ -11,9 +11,11 @@ failing loudly:
 
 1. build   — compile ``csrc/logmel.cu``, ``csrc/ctc.cu``,
              ``csrc/attention.cu`` and ``csrc/depthwise_conv.cu`` for sm_90a;
-             print the build times, ptxas's register report, the card's
-             name and power limit, and the TF32 settings (off for matmuls
-             and cuDNN for the whole run: the parity phases need fp32).
+             print the build times, ptxas's registers and spills per kernel,
+             the card's name and power limit, and PyTorch's TF32 settings
+             (off for matmuls and cuDNN for the whole run: the parity phases
+             need fp32; the attention kernels' own products are 3×TF32,
+             which keeps fp32 accuracy).
 2. kernel  — the log-mel kernel against its plain PyTorch version at the
              serving buckets (B ∈ {1, 8}, 8 channels, 4 000–12 000 valid
              samples in a 12 800-sample bucket): normalized features within
@@ -59,8 +61,15 @@ failing loudly:
              backward against their plain versions at the path's shapes
              (B = 8 / T' = 625, B = 5 / T' = 640, B = 32 / T' = 384; H 6,
              hd 48, C 288, K 15), random key lengths with one row of length
-             1, with and without a dropout multiplier; kernel, plain and
-             library (``F.scaled_dot_product_attention``, ``F.conv1d``) times.
+             1, with and without a dropout multiplier; padded keys' dk and
+             dv exactly 0 and two backward runs bit-identical; kernel, plain
+             and library times: SDPA pinned to its memory-efficient backend
+             (forward; its backward alone, from the raw aten op on one
+             untimed forward's output and log-sum-exp) and ``F.conv1d``.
+             Attention bounds at the 3×TF32 rate (3 × flops / 495 TFLOP/s)
+             beside the fp32 SIMT one, and each attention kernel must be
+             ≥ 1.25× faster than the previous SIMT kernels' recorded times
+             at the config and flagship shapes.
 11. fused/pallas — the same model with ``attention_impl: fused`` and
              ``depthwise_impl: pallas`` through every main path: (a) served
              by the engine (B = 1 and 8, greedy and beam-50) and three
@@ -72,6 +81,9 @@ failing loudly:
              served; (c) phase 8's card-vs-CPU step and overfit; (d) phase
              9's rate with the four kernels' share of the step.
 
+Kernel times are CUDA-event means of launches queued behind a device spin
+(``cuda_ms``), which checks that the spin outlasted the queuing.
+
 The last three lines of standard output are the kernel JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero without the last line.
@@ -82,6 +94,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -96,6 +109,7 @@ import numpy as np
 import torch
 
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ssd_tpu_torch.data.index_dataset import save_index
 from ssd_tpu_torch.data.vocab import default_vocab
@@ -136,6 +150,7 @@ FEAT_TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_featurizer.py::test_fused_ma
 # through 6 blocks and a ×10 CTC head
 LOGPROB_TOL = dict(atol=2e-3, rtol=1e-4)
 H100_FP32_FLOPS = 67e12  # non-tensor-core fp32, SXM, 700 W
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -156,22 +171,65 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+SPIN_CYCLES = 20_000_000  # ~10 ms of device spin at the H100's clock
+SPIN_DOUBLINGS = 7  # at most 2**7 × that, ~1.3 s, before cuda_ms gives up
+
+
+def synchronizes(fn) -> bool:
+    """Whether ``fn()`` waits for the device — a copy from pageable host
+    memory does, and so does a call of more launches than the device's
+    launch queue holds: it returns only after a long spin queued before it
+    ends."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES << SPIN_DOUBLINGS)
+    mark = torch.cuda.Event()
+    mark.record()
+    fn()
+    waited = mark.query()
+    torch.cuda.synchronize()
+    return waited
+
+
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean device time of ``fn()`` over ``iters`` warm launches. The stream
-    first spins for ~10 ms (``torch.cuda._sleep``) while the host queues the
-    launches, so a kernel shorter than its host-side launch is timed back
-    to back on the device, not at the host's launch rate."""
+    first spins (``torch.cuda._sleep``) while the host queues the launches,
+    so a kernel shorter than its host-side launch is timed back to back on
+    the device, not at the host's launch rate. If the start event has
+    already completed once the launches are queued, the spin ran out while
+    the host was still queuing and the device waited on it: the run is
+    repeated with twice the spin, at most ``SPIN_DOUBLINGS`` times, and
+    then it fails. A function that itself waits for the device (the plain
+    log-mel copies its constants from the host; the plain CTC recursions
+    queue thousands of launches) cannot be queued behind a spin: it is timed
+    without one, host gaps included, and says so."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = SPIN_CYCLES
+    for attempt in range(SPIN_DOUBLINGS + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        outran = start.query()  # the device reached the start before the last launch was queued
+        end.record()
+        torch.cuda.synchronize()
+        if not outran:
+            return start.elapsed_time(end) / iters
+        if attempt == 0 and synchronizes(fn):
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            where = f"{fn.__code__.co_filename.rsplit('/', 1)[-1]}:{fn.__code__.co_firstlineno}"
+            print(f"[time] the function at {where} waits for the device: timed without a spin, "
+                  f"host gaps included")
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise SmokeFailure(f"cuda_ms: {iters} launches took the host longer to queue than a "
+                       f"{cycles // 2}-cycle device spin")
 
 
 def close(a: torch.Tensor, b: torch.Tensor, atol: float, rtol: float) -> bool:
@@ -198,9 +256,17 @@ def phase_build() -> str:
     for name, lib in libs.items():
         how = f"nvcc {lib.build_seconds:.2f} s" if lib.build_log else "reused the built library"
         print(f"[build] {name}: {how} ({lib.library_path().name})")
+        kernel = ""
         for line in lib.build_log.splitlines():
+            entry = re.search(r"Compiling entry function '\S*?\d([a-z][a-z_]*_kernel)(?:ILb([01])ELi(\d+)E)?",
+                              line)
+            if entry:
+                kernel = entry.group(1)
+                if entry.group(2):  # attention.cu's template arguments
+                    kernel += (f"<{'16' if entry.group(2) == '1' else '4'}-byte staging, "
+                               f"{entry.group(3)} k-steps>")
             if "registers" in line or "spill" in line:
-                print(f"[build] ptxas {name}: {line.strip()}")
+                print(f"[build] ptxas {name} {kernel}: {line.strip()}")
     card = card_line()
     print(f"[build] card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -547,10 +613,13 @@ def phase_ctc(rng: np.random.Generator) -> dict:
               f"grads vs F.ctc_loss (f64) at {label}: {tg_err} > atol {grad_atol}")
 
         lp_t = lp.transpose(0, 1).contiguous()
+        # lengths on the host, as F.ctc_loss reads them: a CUDA copy would
+        # synchronize inside every timed call
+        ll_h, tl_h = ll.cpu(), tl.cpu()
 
         def torch_fwd_bwd():
             x = lp_t.detach().requires_grad_(True)
-            F.ctc_loss(x, tg, ll, tl, blank=BLANK, reduction="none", zero_infinity=True).sum().backward()
+            F.ctc_loss(x, tg, ll_h, tl_h, blank=BLANK, reduction="none", zero_infinity=True).sum().backward()
 
         def port_fwd_bwd():
             x = lp.detach().requires_grad_(True)
@@ -561,11 +630,12 @@ def phase_ctc(rng: np.random.Generator) -> dict:
             "beta": cuda_ms(lambda: ctc.CTC_BETA(lp_ext, skip_from_f, bfinal, ll32)),
             "alpha_plain": cuda_ms(lambda: ctc.forward_alphas_plain(lp_ext, skip), iters=3, warmup=1),
             "beta_plain": cuda_ms(lambda: ctc.betas_plain(lp_ext, ll, bfinal, skip_from), iters=3, warmup=1),
-            "torch_fwd": cuda_ms(lambda: F.ctc_loss(lp_t, tg, ll, tl, blank=BLANK, reduction="none",
+            "torch_fwd": cuda_ms(lambda: F.ctc_loss(lp_t, tg, ll_h, tl_h, blank=BLANK, reduction="none",
                                                     zero_infinity=True)),
             "torch_fwd_bwd": cuda_ms(torch_fwd_bwd),
-            "port_fwd": cuda_ms(lambda: ctc.ctc_loss(lp, ll, tg, tl, BLANK)),
-            "port_fwd_bwd": cuda_ms(port_fwd_bwd),
+            # dozens of launches a call: 5 calls stay inside the device's launch queue
+            "port_fwd": cuda_ms(lambda: ctc.ctc_loss(lp, ll, tg, tl, BLANK), iters=5),
+            "port_fwd_bwd": cuda_ms(port_fwd_bwd, iters=5),
         }
         times[label] = t
         n = T * B * S2
@@ -847,11 +917,28 @@ ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
 ATTN_GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
 DW_TOL = dict(atol=1e-5, rtol=1e-5)  # forward and dx
 DW_SUM_REL = 1e-4  # dw: sums over B·T terms, within this × the tensor's max-abs
+SDPA_BACKEND = SDPBackend.EFFICIENT_ATTENTION  # fp32 SDPA on the card: 3xTF32 tensor cores
+# the earlier fp32-SIMT attention kernels' times at the config and flagship
+# shapes (PERF.md §6, H100 80GB HBM3 at 700 W): the tensor-core kernels must
+# beat each by ATTN_GATE
+SIMT_ATTN_MS = {"config": {"attention_fwd": 0.2168, "attention_bwd": 0.8317},
+               "flagship": {"attention_fwd": 0.3815, "attention_bwd": 1.4177}}
+ATTN_GATE = 1.25
 
 
-def bound(flops: float, nbytes: float) -> tuple:
-    t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+def bound(flops: float, nbytes: float, flops_per_s: float = H100_FP32_FLOPS) -> tuple:
+    t_ops, t_bytes = flops / flops_per_s * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_bias(mask: torch.Tensor, heads: int) -> torch.Tensor:
+    """The additive key mask (0 or −1e30) as the raw efficient-attention ops
+    take it, prepared as SDPA's front end prepares it: the key dimension
+    padded to a multiple of 16 and sliced back, expanded to (B, H, T, T)."""
+    B, T = mask.shape
+    additive = torch.where(mask != 0, 0.0, -1e30)
+    additive = F.pad(additive, (0, 16 - T % 16))[:, :T]
+    return additive[:, None, None, :].expand(B, heads, T, T)
 
 
 def max_err(got, want) -> float:
@@ -878,12 +965,15 @@ def phase_attention_depthwise(rng: np.random.Generator) -> dict:
     shapes, and its times beside the plain version's and a library call's."""
     dev = torch.device("cuda")
     times, entries = {}, {}
+    print(f"[kernels] SDPA yardsticks pinned to {SDPA_BACKEND} (torch.nn.attention.sdpa_kernel and "
+          f"the raw aten._scaled_dot_product_efficient_attention[_backward] ops)")
     for label, (B, T) in KERNEL_SHAPES.items():
         q, k, v, g, mask, mult = attention_case(rng, B, T)
         errs = {}
         for m in (None, mult):
             out, rmax, rsum = attn.ATTN_FWD(q, k, v, mask, m)
             grads = attn.ATTN_BWD(q, k, v, out, g, rmax, rsum, mask, m)
+            again = attn.ATTN_BWD(q, k, v, out, g, rmax, rsum, mask, m)
             want = attn.fused_attention_plain(q, k, v, mask, m)
             want_grads = attn.fused_attention_bwd_plain(q, k, v, mask, m, g)
             torch.cuda.synchronize()
@@ -897,30 +987,62 @@ def phase_attention_depthwise(rng: np.random.Generator) -> dict:
             pad = mask[:, None, :, None] == 0
             check(bool((grads[1].masked_select(pad) == 0).all() and (grads[2].masked_select(pad) == 0).all()),
                   f"attention {label} {tag}: padded keys got a nonzero dk / dv")
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"attention {label} {tag}: two backward runs differ")
             errs[tag] = (max_err([out], [want]), max_err(grads, want_grads))
         # the train step's case (dropout on) is timed; serving runs no multiplier
         m = None if label == "serving" else mult
         out, rmax, rsum = attn.ATTN_FWD(q, k, v, mask, m)
         additive = torch.where(mask[:, None, None, :] != 0, 0.0, -1e30)
         qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        # SDPA's own backward, alone, on the out and log-sum-exp of one
+        # untimed forward (no dropout multiplier: SDPA has no such input)
+        bias = sdpa_bias(mask, HEADS)
+        s_out, s_lse, s_seed, s_off = torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, bias, True, 0.0, False)
+        sdpa_err = max_err([s_out], [attn.fused_attention_plain(q, k, v, mask)])
 
         def sdpa_fwd_bwd():
             o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=additive)
             torch.autograd.grad(o, (qg, kg, vg), g)
 
-        t = {
-            "attention_fwd": cuda_ms(lambda: attn.ATTN_FWD(q, k, v, mask, m)),
-            "attention_bwd": cuda_ms(lambda: attn.ATTN_BWD(q, k, v, out, g, rmax, rsum, mask, m)),
-            "attention_fwd_plain": cuda_ms(lambda: attn.fused_attention_plain(q, k, v, mask, m), iters=10),
-            "attention_bwd_plain": cuda_ms(lambda: attn.fused_attention_bwd_plain(q, k, v, mask, m, g),
-                                           iters=10),
-            "attention_fwd_library": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive)),
-            "attention_bwd_library": cuda_ms(sdpa_fwd_bwd),
-        }
+        def sdpa_bwd():
+            torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+                g, q, k, v, bias, s_out, s_lse, s_seed, s_off, 0.0, [True, True, True, False], False)
+
+        with sdpa_kernel(SDPA_BACKEND):
+            t = {
+                "attention_fwd": cuda_ms(lambda: attn.ATTN_FWD(q, k, v, mask, m)),
+                "attention_bwd": cuda_ms(lambda: attn.ATTN_BWD(q, k, v, out, g, rmax, rsum, mask, m)),
+                "attention_fwd_plain": cuda_ms(lambda: attn.fused_attention_plain(q, k, v, mask, m), iters=10),
+                "attention_bwd_plain": cuda_ms(lambda: attn.fused_attention_bwd_plain(q, k, v, mask, m, g),
+                                               iters=10),
+                "attention_fwd_library": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive)),
+                "attention_bwd_library": cuda_ms(sdpa_bwd),
+                "attention_fwd_bwd_library": cuda_ms(sdpa_fwd_bwd),
+            }
         n, stats = B * HEADS * T * HEAD_DIM, B * HEADS * T
         extra = B * T + (T * T if m is not None else 0)  # the mask and the multiplier
-        b_fwd = bound(4 * B * HEADS * T * T * HEAD_DIM, 4 * (4 * n + 2 * stats + extra))
-        b_bwd = bound(10 * B * HEADS * T * T * HEAD_DIM, 4 * (8 * n + 2 * stats + extra))
+        fwd_flops, bwd_flops = 4 * B * HEADS * T * T * HEAD_DIM, 10 * B * HEADS * T * T * HEAD_DIM
+        fwd_bytes, bwd_bytes = 4 * (4 * n + 2 * stats + extra), 4 * (8 * n + 2 * stats + extra)
+        # the kernels' products are 3×TF32: three tensor-core products per fp32 one
+        b_fwd = bound(3 * fwd_flops, fwd_bytes, H100_TF32_FLOPS)
+        b_bwd = bound(3 * bwd_flops, bwd_bytes, H100_TF32_FLOPS)
+        simt = {"attention_fwd": bound(fwd_flops, fwd_bytes)[0], "attention_bwd": bound(bwd_flops, bwd_bytes)[0]}
+        print(f"[kernels] {label} B={B} T'={T}: SDPA forward vs the plain version max abs err {sdpa_err:.3e}; "
+              f"SDPA forward + backward (autograd) {t['attention_fwd_bwd_library']:.4f} ms; "
+              f"attention bounds: fp32 SIMT (67 TFLOP/s) fwd {simt['attention_fwd']:.5f} / bwd "
+              f"{simt['attention_bwd']:.5f} ms, 3xTF32 (3 x flops / 495 TFLOP/s) fwd {b_fwd[0]:.5f} / "
+              f"bwd {b_bwd[0]:.5f} ms")
+        for name in ("attention_fwd", "attention_bwd"):
+            if label in SIMT_ATTN_MS:
+                limit = SIMT_ATTN_MS[label][name] / ATTN_GATE
+                print(f"[kernels] {label} {name}: {t[name]:.4f} ms against the SIMT kernel's {SIMT_ATTN_MS[label][name]} "
+                      f"ms: {SIMT_ATTN_MS[label][name] / t[name]:.2f}x faster (gate: ≥ {ATTN_GATE}x, "
+                      f"≤ {limit:.4f} ms)")
+                check(t[name] <= limit, f"{name} at {label}: {t[name]:.4f} ms > {limit:.4f} ms, "
+                      f"less than {ATTN_GATE}x faster than the SIMT kernel")
 
         x, gx = (torch.from_numpy(rng.normal(size=(B, T, CHANNELS_DW)).astype(np.float32)).to(dev)
                  for _ in range(2))
@@ -982,10 +1104,10 @@ def phase_attention_depthwise(rng: np.random.Generator) -> dict:
                     "plain_ms": t[name + "_plain"], "bound_ms": bnd, "bound_by": by,
                     "library_ms": t[name + "_library"],
                 }
-        print(f"[kernels] {label}: attention errors (forward, gradients) {errs}; library = "
-              f"F.scaled_dot_product_attention with the additive key mask (forward; forward + backward "
-              f"beside the backward kernel) and F.conv1d(groups=C) on (B, C, T) (forward; forward + "
-              f"backward), timed only")
+        print(f"[kernels] {label}: attention errors (forward, gradients) {errs}; library = SDPA "
+              f"({SDPA_BACKEND.name}) with the additive key mask: its forward, and its backward alone "
+              f"beside the backward kernel; F.conv1d(groups=C) on (B, C, T) (forward; forward + "
+              f"backward); timed only")
     return {"entries": entries, "times": times}
 
 

@@ -9,55 +9,116 @@
 //   s[i, j] = (q_i · k_j) · scale,  or −1e30 where km[b, j] == 0
 //   w       = softmax_j(s)  (fp32),  out_i = Σ_j w[i, j] · μ[i, j] · v_j
 //
-// and its VJP: dv_j = Σ_i w μ · do_i, ds = w ∘ (μ ∘ (do · vᵀ) − D) · scale
-// with D_i = do_i · out_i (= Σ_j (μ ∘ do · vᵀ) ∘ w, exact with dropout too),
-// dq_i = Σ_j ds · k_j, dk_j = Σ_i ds · q_i. The scale multiplies after the
+// and its VJP: dv_j = Σ_i w μ · do_i, ds = w ∘ (μ ∘ dP − D) · scale with
+// dP = do · vᵀ and D_i = Σ_j w μ dP (the plain version's rowsum(dw ∘ w);
+// = do_i · out_i in exact arithmetic), dq_i = Σ_j ds · k_j,
+// dk_j = Σ_i ds · q_i. The scale multiplies after the
 // dot and masked keys sit at −1e30 — the Pallas kernel's numerics, not
-// flax's. A fully masked row gets uniform weights, as on the TPU.
+// flax's; keys past T are left out. A fully masked row gets uniform weights,
+// as on the TPU. The forward saves the row max m and row sum l, not the
+// log-sum-exp: for a fully masked row m + log l rounds back to −1e30 and
+// the backward would recompute weights of 1 instead of 1/T. μ scales p in
+// the output sum, not in the running sum. Padded keys get dk = dv = 0
+// exactly. Outputs are written through strided views, in the (B, T, H, hd)
+// storage the output projection reads.
 //
-// What bounds it: 4·T²·hd flops per (b, h) forward (two T × T × hd
-// products; the TPU cost estimate) against 16·T·hd bytes. At T = 640,
-// hd = 48 that is 160 flops a byte, so on the card's 67 TFLOP/s fp32 SIMT
-// pipe (TF32 stays off: the parity contract is fp32) the op is bound by
-// operations: 2.36 GFLOP at B = 5, H = 6 is 35 µs. The backward's
-// 10·T²·hd flops are bound the same way.
+// What bounds it: 4·T²·hd flops per (b, h) forward and 10·T²·hd backward
+// (the TPU cost estimates) against 16·T·hd bytes and a few more: at T = 640,
+// hd = 48 that is 160 flops a byte forward, bound by operations. The
+// products run on the tensor cores as 3×TF32, the arithmetic of PyTorch's
+// fp32 memory-efficient SDPA (CUTLASS's OpMultiplyAddFastF32): each fp32
+// operand x splits into big = tf32(x) and small = tf32(x − big), both
+// rounded as cvt.rna.tf32.f32 rounds, and small·big + big·small + big·big
+// is accumulated in fp32 (small·small is dropped). That keeps fp32-grade
+// accuracy (a CPU emulation in tests/test_torch_attention.py holds it to
+// float64 within the fp32 tolerances; 1×TF32 misses them) at 3 × flops /
+// 495 TFLOP/s: 14.3 µs for the forward at B = 5, H = 6, where the fp32
+// SIMT pipe's 67 TFLOP/s would take 35.2 µs. On the card the kernels reach
+// 9–16 % of that bound: with 2 CTAs (8 warps) an SM they are bound by the
+// latency of the dependent split → mma chains, not by the tensor cores.
 //
-// What the design does about it. The TPU kernel holds one batch element's
-// whole problem — every head's q, k, v and the (T, T) scores — in VMEM. A
-// CTA's 227 KB holds no (T, T) tile at T = 640, so this is flash-style:
-//   * forward: one CTA per (64 queries, h, b); K and V stream through shared
-//     memory in 64-key tiles (12 KB each at hd = 48); the row max and sum
-//     live in registers (online softmax); μ scales the unnormalised p that
-//     is accumulated into out, not the running sum. The scores never reach
-//     device memory, and neither does any (T, T) tensor. It writes out and
-//     the row max m and sum l (B, H, T), from which the backward recomputes
-//     w = exp(s − m) / l — right for fully masked rows too, where
-//     m + log l would round back to −1e30.
-//   * backward (FA2-style), two launches: (1) one CTA per (64 queries, h,
-//     b) computes D for its rows, stores it, and loops over the key tiles
-//     accumulating dq; (2) one CTA per (64 keys, h, b) loops over the query
-//     tiles accumulating dk and dv. Every output element is owned by one
-//     thread: no atomics, so the gradients are bit-reproducible.
-//   * 256 threads in a 16 × 16 grid; a thread owns rows ty + 16a and
-//     columns tx + 16b (a, b < 4) of each 64 × 64 product, so a row's 16
-//     threads sit in one half-warp (shuffle reductions) and shared-memory
-//     rows are padded to an odd stride (no bank conflicts).
-//   * q, k, v, out and the gradients are strided (B, H, T, hd) views with a
-//     unit hd stride — the (B, T, H, hd) projections are read in place.
-//   * hd ≤ 64 (every config: 48 at tpu_fast_plus, 64 at tpu_scaled_large);
-//     a thread's output columns tx + 16c, c < 4, cover it.
+// What the design does about it.
+//   * Products are mma.sync.m16n8k8 tf32 in inline PTX. A CTA of 4 warps
+//     takes 64 queries (forward, dq) or 64 keys (dk/dv); each warp owns 16
+//     of them and holds their operand (q, do, or k and v) as A fragments in
+//     registers for the whole loop over the other side's 64-row tiles,
+//     splitting one k-step at a time as it is used. Scores and dP stay in
+//     mma accumulators: the online softmax reduces over the 4 lanes of a
+//     quad with shuffles, with no CTA barrier and no round trip through
+//     shared memory. The backward holds 16 columns of scores at a time
+//     (kChunk), which keeps it near the 255-register limit.
+//   * The TF32 accumulator layout (row g, columns 2t and 2t + 1) is not the
+//     A-operand layout (columns t and t + 4). A sum over k does not depend
+//     on the order of k, so the next product takes each 8-column step in
+//     the permuted order k = t ↔ column 2t, k = t + 4 ↔ column 2t + 1, and
+//     its B operand reads the matching rows 2t and 2t + 1: p∘μ and ds go
+//     from accumulators to A fragments in registers, with no shuffle and
+//     no shared memory.
+//   * The split rounds with integer operations (tf32_rna): cvt.rna runs on
+//     the conversion unit at a sixteenth of the fp32 rate, and the B
+//     fragments are split as they are loaded, two values a k-step — with
+//     cvt the backward takes 1.28× as long (bench_attention_variants.py).
+//   * The tensor cores truncate what they add into an accumulator; over a
+//     640-row sum that tripled the gradients' largest error on the card
+//     (scripts/bench_attention_variants.py) and put dv outside the
+//     tolerance in tests/test_torch_cuda.py. Products summed over keys or
+//     queries therefore start each 8-row step from a fresh accumulator and
+//     join the running sum with an fp32 add (mma3_sum).
+//   * hd runs in 6 k-steps of 8 (hd ≤ 48: hd 48 pads no output column) or
+//     8 (48 < hd ≤ 64), a template argument; columns past hd are zero in
+//     shared memory.
+//   * The streamed tiles (k, v, the 64 × 64 μ tile and the key mask; in the
+//     dk/dv kernel q, do, μ, m, l and D) go through a two-stage ring of
+//     cp.async copies: tile j + 1 is in flight while tile j computes, with
+//     one wait and one barrier a tile. Rows are copied 16 bytes at a time
+//     where hd % 4 == 0 and the views are 16-byte aligned, else 4 bytes
+//     at a time (a template argument of the same kernels).
+//   * Shared-memory rows have a stride of hdp + 4 floats (hdp: 48 or 64).
+//     Fragment loads read a tile either as (row g, column t) — q, k, do or
+//     v as the B operand of a score product — or as (row 2t, column g) —
+//     v, k, q or do as the B operand of a product that sums over rows. Both
+//     are free of bank conflicts at that stride, so k in the dq kernel
+//     feeds both products from one copy. The μ tile is read as float2 at
+//     (row g, columns 2t..2t + 1) with a stride of 72 floats in the forward
+//     and dq kernels, and at (row 2t, column g) with a stride of 68 in the
+//     dk/dv kernel.
+//   * A masked key adds a bias: s · scale + 0, −1e30 (exactly −1e30, since
+//     |s · scale| is far below half its ulp) or −inf past T.
+//   * The backward is two launches with one owner per output, as in FA2:
+//     (1) one CTA per 64 queries accumulates dq over the key tiles and
+//     stores D for its rows; (2) one CTA per 64 keys accumulates dk and dv
+//     over the query tiles. No atomics: the gradients are bit-reproducible.
+//     μ is staged through shared memory. D is summed from the same w and
+//     dP that ds uses, not taken as do · out (FA2's shortcut): where one
+//     key holds a row's whole weight (a row of length 1), μ dP − D must
+//     cancel exactly, and the rounding of out against dP left dk outside
+//     the tolerance there at T = 640 on the card. So the dq
+//     kernel, which cannot know D before its sweep ends, accumulates
+//     Σ_j w μ dP k_j and Σ_j w k_j and forms dq = scale · (first − D ·
+//     second) at the end; and the dk/dv kernel computes its transposed
+//     scores and dP with the operands' roles swapped in the same order
+//     (mma3_swapped), so they equal the dq kernel's and the cancellation is
+//     exact. The two launches do 8 T × T × hd products (the function needs
+//     five: both recompute the scores and dP, and Σ_j w k_j is the price
+//     of the consistent D).
+//   * q, k, v, do and the outputs are strided (B, H, T, hd) views with a unit
+//     hd stride; the (B, T, H, hd) projections are read in place.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTileRows = 64;  // queries or keys per tile
-constexpr int kThreads = 256;  // 16 × 16
-constexpr int kPadRow = kTileRows + 1;  // stride of a 64 × 64 tile in shared memory
-constexpr float kMasked = -1.0e30f;
+constexpr int kTile = 64;                  // queries or keys per CTA and per streamed tile
+constexpr int kWarps = 4;                  // a warp owns 16 rows of the CTA's 64
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxHeadDim = 64;
-constexpr int NC = kMaxHeadDim / 16;  // output columns tx + 16c of a thread
+constexpr int kRowSteps = kTile / 8;       // 8-row steps of a streamed tile
+constexpr int kChunk = 2;                  // 8-row steps a backward warp holds scores for at once
+constexpr int kMuLdRow = kTile + 8;        // μ tile read as (row g, columns 2t..2t + 1)
+constexpr int kMuLdCol = kTile + 4;        // μ tile read as (row 2t, column g)
+constexpr float kMasked = -1.0e30f;
 
 struct View {  // a (B, H, T, hd) tensor with unit stride along hd
   float* p;
@@ -70,164 +131,411 @@ struct View {  // a (B, H, T, hd) tensor with unit stride along hd
 struct Problem {
   const int* kmask;   // (B, T), nonzero = valid key
   const float* mult;  // (T, T) dropout multiplier, or null
-  int H, T, hd, ld;   // ld: odd shared-memory row stride ≥ hd
+  int H, T, hd;
+  int hdp;            // hd zero-padded to the kernel's k-steps: 8 · kSteps (48 or 64)
+  int ld;             // shared-memory row stride of a (64, hd) tile: hdp + 4
+  int mu_floats;      // floats of a stage's μ tile, 0 without a multiplier
+  bool mult_vec;      // μ rows can be copied 16 bytes at a time
   float scale;
 };
 
-// Rows [t0, t0 + 64) of one (b, h) slice → dst (64 × ld); zeros past T.
-__device__ __forceinline__ void load_tile(const View& v, int b, int h, int t0, const Problem& P,
-                                          float* dst) {
-  for (int i = threadIdx.x; i < kTileRows * P.hd; i += kThreads) {
-    const int r = i / P.hd;
-    const int d = i - r * P.hd;
-    const int t = t0 + r;
-    dst[r * P.ld + d] = t < P.T ? v.row(b, h, t)[d] : 0.f;
-  }
+// ------------------------------------------------------------ cp.async
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Key state of the tile at k0: 1 valid, 0 masked, −1 past T.
-__device__ __forceinline__ void load_key_state(int b, int k0, const Problem& P, int* state) {
-  if (threadIdx.x < kTileRows) {
-    const int t = k0 + threadIdx.x;
-    state[threadIdx.x] = t < P.T ? (P.kmask[static_cast<long long>(b) * P.T + t] != 0) : -1;
-  }
+// 16 bytes from src, or zeros when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// acc[a][b] += Σ_d A[ty + 16a][d] · Bm[tx + 16b][d] over two 64 × hd tiles.
-__device__ __forceinline__ void tile_dot(const float* A, const float* Bm, int hd, int ld, int ty,
-                                         int tx, float acc[4][4]) {
-  for (int d = 0; d < hd; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = A[(ty + 16 * a) * ld + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) bv[c] = Bm[(tx + 16 * c) * ld + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
-  }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// acc[a][c] += Σ_j W[j][ty + 16a] (or W[ty + 16a][j] when !transposed) · M[j][tx + 16c]
-template <bool kTransposed>
-__device__ __forceinline__ void tile_mm(const float* W, const float* M, int hd, int ld, int ty,
-                                        int tx, float acc[4][NC]) {
-  for (int j = 0; j < kTileRows; ++j) {
-    float mv[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) mv[c] = (tx + 16 * c < hd) ? M[j * ld + tx + 16 * c] : 0.f;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float wv = kTransposed ? W[j * kPadRow + ty + 16 * a] : W[(ty + 16 * a) * kPadRow + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[a][c] = fmaf(wv, mv[c], acc[a][c]);
+// Rows [t0, t0 + 64) of one (b, h) slice → dst (64 × P.ld), zeros past T and
+// in the columns [hd, hdp).
+template <bool kVec>
+__device__ __forceinline__ void stage_rows(const View& v, int b, int h, int t0, const Problem& P,
+                                           float* dst) {
+  if (kVec) {  // hd % 4 == 0: a 16-byte chunk is all inside hd or all outside
+    const int chunks = P.hdp / 4;
+    for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
+      const int r = i / chunks, c = 4 * (i - r * chunks);
+      const bool ok = t0 + r < P.T && c < P.hd;
+      cp_async16(dst + r * P.ld + c, ok ? v.row(b, h, t0 + r) + c : v.p, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * P.hdp; i += kThreads) {
+      const int r = i / P.hdp, c = i - r * P.hdp;
+      const bool ok = t0 + r < P.T && c < P.hd;
+      cp_async4(dst + r * P.ld + c, ok ? v.row(b, h, t0 + r) + c : v.p, ok);
     }
   }
 }
 
-__device__ __forceinline__ void store_rows(const View& out, int b, int h, int t0,
-                                           const Problem& P, int ty, int tx,
-                                           const float acc[4][NC], const float* row_scale) {
+// μ[r0 + r][c0 + c], r, c < 64 → dst (64 × ld), zeros outside T × T.
+__device__ __forceinline__ void stage_mult(const Problem& P, int r0, int c0, float* dst, int ld) {
+  if (P.mult_vec) {  // T % 4 == 0 and c0 % 64 == 0: a chunk is all inside T or all outside
+    for (int i = threadIdx.x; i < kTile * kTile / 4; i += kThreads) {
+      const int r = i / (kTile / 4), c = 4 * (i % (kTile / 4));
+      const bool ok = r0 + r < P.T && c0 + c < P.T;
+      cp_async16(dst + r * ld + c,
+                 ok ? P.mult + static_cast<long long>(r0 + r) * P.T + c0 + c : P.mult, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+      const int r = i / kTile, c = i % kTile;
+      const bool ok = r0 + r < P.T && c0 + c < P.T;
+      cp_async4(dst + r * ld + c,
+                ok ? P.mult + static_cast<long long>(r0 + r) * P.T + c0 + c : P.mult, ok);
+    }
+  }
+}
+
+// The 64 4-byte values src[t0 + i] of a (·, T) row → dst, zeros past T.
+__device__ __forceinline__ void stage_vector(const void* src, int t0, int T, void* dst) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const bool ok = t0 + i < T;
+    cp_async4(static_cast<char*>(dst) + 4 * i,
+              static_cast<const char*>(src) + 4 * static_cast<long long>(ok ? t0 + i : 0), ok);
+  }
+}
+
+// -------------------------------------------------------- 3×TF32 products
+
+struct Frag {  // an m16n8k8 A fragment, split into its tf32 big and small parts
+  uint32_t big[4], small[4];
+};
+
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero, on the 13 low mantissa bits), on the integer pipe: the
+// conversion unit runs at a sixteenth of the fp32 rate, and the kernels
+// split two B values for every three mma.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a · b in 3×TF32: small·big and big·small first, then big·big.
+// b0 = B[k = t][n = g], b1 = B[k = t + 4][n = g] of this lane.
+__device__ __forceinline__ void mma3(float c[4], const Frag& a, float b0, float b1) {
+  uint32_t bb[2], bs[2];
+  split(b0, bb[0], bs[0]);
+  split(b1, bb[1], bs[1]);
+  mma_tf32(c, a.small, bb);
+  mma_tf32(c, a.big, bs);
+  mma_tf32(c, a.big, bb);
+}
+
+// acc += a · b for a product summed over a long axis (keys or queries): the
+// tensor cores align and truncate each product to the accumulator they
+// add into, so a chain of mma.sync over 640 rows loses bits to a running
+// sum that has grown large (see the note at the top). The three products
+// of each k-step go into a fresh accumulator instead, which then joins the
+// running sum with an fp32 add.
+__device__ __forceinline__ void mma3_sum(float acc[4], const Frag& a, const uint32_t bb[2],
+                                         const uint32_t bs[2]) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(c, a.small, bb);
+  mma_tf32(c, a.big, bs);
+  mma_tf32(c, a.big, bb);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int t = t0 + ty + 16 * a;
-    if (t >= P.T) continue;
-    float* dst = out.row(b, h, t);
-    const float s = row_scale ? row_scale[a] : 1.f;
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
+}
+
+// The same products as mma3 with the roles of the two operands swapped
+// (big·small before small·big): the dk/dv kernel's transposed scores and dP
+// then equal the dq kernel's bit for bit, given the same order of k.
+__device__ __forceinline__ void mma3_swapped(float c[4], const Frag& a, float b0, float b1) {
+  uint32_t bb[2], bs[2];
+  split(b0, bb[0], bs[0]);
+  split(b1, bb[1], bs[1]);
+  mma_tf32(c, a.big, bs);
+  mma_tf32(c, a.small, bb);
+  mma_tf32(c, a.big, bb);
+}
+
+// The A fragment of rows [row0, row0 + 16), columns [8kk, 8kk + 8) of a
+// shared-memory tile, unsplit: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+// A warp keeps its operand so (4 registers a k-step, not 8) and splits one
+// k-step at a time as the products need it.
+struct RawFrag {
+  float x[4];
+};
+
+__device__ __forceinline__ RawFrag load_a(const float* tile, int ld, int row0, int kk, int g,
+                                          int t) {
+  const float* p = tile + (row0 + g) * ld + 8 * kk + t;
+  return RawFrag{{p[0], p[8 * ld], p[4], p[8 * ld + 4]}};
+}
+
+__device__ __forceinline__ Frag split_a(const RawFrag& r) {
+  Frag f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < P.hd) dst[d] = row_scale ? acc[a][c] / s : acc[a][c];
+  for (int i = 0; i < 4; ++i) split(r.x[i], f.big[i], f.small[i]);
+  return f;
+}
+
+// An accumulator (rows g, g + 8; columns 2t, 2t + 1 of an 8-column step) as
+// the A fragment of the product that sums over those 8 columns, in the
+// permuted k order k = t ↔ column 2t, k = t + 4 ↔ column 2t + 1. The B
+// operand of that product reads rows 2t and 2t + 1 (see the loops).
+__device__ __forceinline__ Frag acc_as_a(const float c[4]) {
+  Frag f;
+  split(c[0], f.big[0], f.small[0]);
+  split(c[2], f.big[1], f.small[1]);
+  split(c[1], f.big[2], f.small[2]);
+  split(c[3], f.big[3], f.small[3]);
+  return f;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows row0 + g + 8r (r < 2), columns 8nd + 2t + e (e < 2) of an
+// accumulator strip (16 × hd) → dst rows, divided by div[r] when given.
+template <int kSteps>
+__device__ __forceinline__ void store_strip(const View& dst, int b, int h, int row0,
+                                            const Problem& P, int g, int t,
+                                            const float acc[kSteps][4], const float* div) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= P.T) continue;
+    float* out = dst.row(b, h, row);
+#pragma unroll
+    for (int nd = 0; nd < kSteps; ++nd) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * nd + 2 * t + e;
+        if (d < P.hd) out[d] = div ? acc[nd][2 * r + e] / div[r] : acc[nd][2 * r + e];
+      }
+    }
+  }
+}
+
+// What a key's score gets added after the scale: 0 for a valid key, −1e30
+// for a masked one (the sum is then −1e30 exactly: |s · scale| is far below
+// half its ulp) and −inf past T.
+__device__ __forceinline__ float key_bias(int key, int valid, int T) {
+  return key >= T ? -INFINITY : (valid ? 0.f : kMasked);
+}
+
+// A stage of the forward / dq ring: k and v (64 × ld each), μ, key mask.
+struct KeyStage {
+  float* k;
+  float* v;
+  float* mu;  // 64 × kMuLdRow, when P.mult
+  int* km;
+};
+
+__device__ __forceinline__ int key_stage_floats(const Problem& P) {
+  return 2 * kTile * P.ld + P.mu_floats + kTile;
+}
+
+__device__ __forceinline__ KeyStage key_stage(float* smem, int s, const Problem& P) {
+  float* base = smem + s * key_stage_floats(P);
+  KeyStage st;
+  st.k = base;
+  st.v = base + kTile * P.ld;
+  st.mu = st.v + kTile * P.ld;
+  st.km = reinterpret_cast<int*>(st.mu + P.mu_floats);
+  return st;
+}
+
+// Queue the copies of the key tile at k0 for the query tile at q0.
+template <bool kVec>
+__device__ __forceinline__ void load_key_tile(const View& k, const View& v, int b, int h, int q0,
+                                              int k0, const Problem& P, const KeyStage& st) {
+  stage_rows<kVec>(k, b, h, k0, P, st.k);
+  stage_rows<kVec>(v, b, h, k0, P, st.v);
+  if (P.mult != nullptr) stage_mult(P, q0, k0, st.mu, kMuLdRow);
+  stage_vector(P.kmask + static_cast<long long>(b) * P.T, k0, P.T, st.km);
+}
+
+// s[n] (rows g, g + 8 of the warp; columns 8n + 2t, 2t + 1), n < kN, = the
+// warp's 16 rows of A (kept as raw fragments) times rows [0, 8kN) of a
+// tile, summed over the head dimension: q · kᵀ, or do · vᵀ.
+template <int kSteps, int kN, bool kSwapped = false>
+__device__ __forceinline__ void score_tile(float s[kN][4], const RawFrag a[kSteps],
+                                           const float* tile, int ld, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const Frag f = split_a(a[kk]);
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const float* p = tile + (8 * n + g) * ld + 8 * kk + t;
+      if (kSwapped)
+        mma3_swapped(s[n], f, p[0], p[4]);
+      else
+        mma3(s[n], f, p[0], p[4]);
+    }
+  }
+}
+
+// acc (the warp's 16 rows × hd) += w · tile, summed over rows [0, 8kN) of
+// the tile: w (16 × 8kN) is in accumulator layout and goes in as A
+// fragments in the permuted k order, one 8-row step at a time. With w2 and
+// acc2 also acc2 += w2 · tile, on the same split B fragments.
+template <int kSteps, int kN, bool kTwo = false>
+__device__ __forceinline__ void row_product(float acc[kSteps][4], const float w[kN][4],
+                                            const float* tile, int ld, int g, int t,
+                                            float acc2[kSteps][4] = nullptr,
+                                            const float w2[kN][4] = nullptr) {
+#pragma unroll
+  for (int kk = 0; kk < kN; ++kk) {
+    const Frag f = acc_as_a(w[kk]);
+    Frag f2;
+    if (kTwo) f2 = acc_as_a(w2[kk]);
+    const float* p = tile + (8 * kk + 2 * t) * ld + g;
+#pragma unroll
+    for (int nd = 0; nd < kSteps; ++nd) {
+      uint32_t bb[2], bs[2];
+      split(p[8 * nd], bb[0], bs[0]);
+      split(p[ld + 8 * nd], bb[1], bs[1]);
+      mma3_sum(acc[nd], f, bb, bs);
+      if (kTwo) mma3_sum(acc2[nd], f2, bb, bs);
     }
   }
 }
 
 // ------------------------------------------------------------------ forward
 
+template <bool kVec, int kSteps>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(View q, View k, View v, View out, float* __restrict__ row_max,
                 float* __restrict__ row_sum, Problem P) {
-  extern __shared__ float smem[];
-  float* qs = smem;                       // 64 × ld
-  float* ks = qs + kTileRows * P.ld;      // 64 × ld
-  float* vs = ks + kTileRows * P.ld;      // 64 × ld
-  float* ps = vs + kTileRows * P.ld;      // 64 × 65: p ∘ μ of the tile
-  int* kstate = reinterpret_cast<int*>(ps + kTileRows * kPadRow);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * kTileRows, h = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (P.T + kTile - 1) / kTile;
 
-  load_tile(q, b, h, q0, P, qs);
-  float m[4], l[4], acc[4][NC];
+  // the query tile lands in stage 1's k slot and is read into registers
+  // before key tile 1 is queued there
+  stage_rows<kVec>(q, b, h, q0, P, key_stage(smem, 1, P).k);
+  load_key_tile<kVec>(k, v, b, h, q0, 0, P, key_stage(smem, 0, P));
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  RawFrag qf[kSteps];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
-  }
+  for (int kk = 0; kk < kSteps; ++kk)
+    qf[kk] = load_a(key_stage(smem, 1, P).k, P.ld, 16 * warp, kk, g, t);
 
-  for (int k0 = 0; k0 < P.T; k0 += kTileRows) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(k, b, h, k0, P, ks);
-    load_tile(v, b, h, k0, P, vs);
-    load_key_state(b, k0, P, kstate);
-    __syncthreads();
-    float s[4][4] = {};
-    tile_dot(qs, ks, P.hd, P.ld, ty, tx, s);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
+  float o[kSteps][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qi = q0 + ty + 16 * a;
-      float mx = -INFINITY;
+  for (int nd = 0; nd < kSteps; ++nd)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int st = kstate[tx + 16 * c];
-        s[a][c] = st < 0 ? -INFINITY : (st == 0 ? kMasked : s[a][c] * P.scale);
-        mx = fmaxf(mx, s[a][c]);
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in for every thread; every warp is done with tile j − 1
+    if (j + 1 < ntiles)
+      load_key_tile<kVec>(k, v, b, h, q0, (j + 1) * kTile, P, key_stage(smem, (j + 1) & 1, P));
+    cp_async_commit();
+    const KeyStage st = key_stage(smem, j & 1, P);
+    const int k0 = j * kTile;
+
+    float s[kRowSteps][4];
+    score_tile<kSteps, kRowSteps>(s, qf, st.k, P.ld, g, t);
+
+    // scale and mask; the row max over the tile (a quad holds a row's 64 keys)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kRowSteps; ++nt) {
+      const int c = 8 * nt + 2 * t;
+      const int2 km = *reinterpret_cast<const int2*>(st.km + c);
+      const float kb[2] = {key_bias(k0 + c, km.x, P.T), key_bias(k0 + c + 1, km.y, P.T)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = fmaf(s[nt][e], P.scale, kb[e & 1]);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
-      const float m_new = fmaxf(m[a], half_warp_max(mx));  // finite: the tile has a key < T
-      const float corr = expf(m[a] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = k0 + tx + 16 * c;
-        const float p = expf(s[a][c] - m_new);  // 0 past T
-        rs += p;
-        float pm = p;
-        if (P.mult != nullptr && qi < P.T && kj < P.T)
-          pm *= P.mult[static_cast<long long>(qi) * P.T + kj];
-        ps[(ty + 16 * a) * kPadRow + tx + 16 * c] = pm;
-      }
-      l[a] = l[a] * corr + half_warp_sum(rs);
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[a][c] *= corr;
     }
-    __syncthreads();
-    tile_mm<false>(ps, vs, P.hd, P.ld, ty, tx, acc);
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));  // finite: the tile has a key < T
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+    const float* mu0 = st.mu + (16 * warp + g) * kMuLdRow + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < kRowSteps; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m[e >> 1]);  // 0 past T
+        rs[e >> 1] += s[nt][e];
+      }
+      if (P.mult != nullptr) {  // μ scales p in the output sum only
+        const float2 u0 = *reinterpret_cast<const float2*>(mu0 + 8 * nt);
+        const float2 u1 = *reinterpret_cast<const float2*>(mu0 + 8 * kMuLdRow + 8 * nt);
+        s[nt][0] *= u0.x;
+        s[nt][1] *= u0.y;
+        s[nt][2] *= u1.x;
+        s[nt][3] *= u1.y;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
+#pragma unroll
+    for (int nd = 0; nd < kSteps; ++nd) {
+      o[nd][0] *= corr[0];
+      o[nd][1] *= corr[0];
+      o[nd][2] *= corr[1];
+      o[nd][3] *= corr[1];
+    }
+    row_product<kSteps, kRowSteps>(o, s, st.v, P.ld, g, t);  // out += (p ∘ μ) · v
   }
 
-  store_rows(out, b, h, q0, P, ty, tx, acc, l);
-  if (tx == 0) {
+  store_strip<kSteps>(out, b, h, q0 + 16 * warp, P, g, t, o, l);
+  if (t == 0) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int t = q0 + ty + 16 * a;
-      if (t < P.T) {
-        const long long i = (static_cast<long long>(b) * P.H + h) * P.T + t;
-        row_max[i] = m[a];
-        row_sum[i] = l[a];
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      if (row < P.T) {
+        const long long i = (static_cast<long long>(b) * P.H + h) * P.T + row;
+        row_max[i] = m[r];
+        row_sum[i] = l[r];
       }
     }
   }
@@ -235,162 +543,218 @@ attn_fwd_kernel(View q, View k, View v, View out, float* __restrict__ row_max,
 
 // ----------------------------------------------------------------- backward
 
-// The recomputed weight and the score gradient of one (query, key) pair.
-struct PairGrad {
-  float pm;  // w ∘ μ
-  float ds;  // w ∘ (μ ∘ dP − D) · scale
-};
-
-__device__ __forceinline__ PairGrad pair_grad(float dot, float dp, int kst, int qi, int kj,
-                                              float m, float l, float D, const Problem& P) {
-  if (kst < 0 || qi >= P.T) return {0.f, 0.f};
-  const float s = kst == 0 ? kMasked : dot * P.scale;
-  const float w = expf(s - m) / l;
-  const float mu = P.mult != nullptr ? P.mult[static_cast<long long>(qi) * P.T + kj] : 1.f;
-  return {w * mu, w * (dp * mu - D) * P.scale};
-}
-
-// Row statistics of the query tile at q0 into shared memory: m, l, D.
-__device__ __forceinline__ void load_row_stats(int b, int h, int q0, const Problem& P,
-                                               const float* row_max, const float* row_sum,
-                                               const float* delta, float* ms, float* ls,
-                                               float* Ds) {
-  if (threadIdx.x < kTileRows) {
-    const int t = q0 + threadIdx.x;
-    const long long i = (static_cast<long long>(b) * P.H + h) * P.T + t;
-    ms[threadIdx.x] = t < P.T ? row_max[i] : 0.f;
-    ls[threadIdx.x] = t < P.T ? row_sum[i] : 1.f;
-    Ds[threadIdx.x] = t < P.T ? delta[i] : 0.f;
-  }
-}
-
+template <bool kVec, int kSteps>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(View q, View k, View v, View out, View dout, View dq,
+attn_bwd_dq_kernel(View q, View k, View v, View dout, View dq,
                    const float* __restrict__ row_max, const float* __restrict__ row_sum,
                    float* __restrict__ delta, Problem P) {
-  extern __shared__ float smem[];
-  float* qs = smem;                      // 64 × ld
-  float* dos = qs + kTileRows * P.ld;    // 64 × ld
-  float* ks = dos + kTileRows * P.ld;    // 64 × ld
-  float* vs = ks + kTileRows * P.ld;     // 64 × ld
-  float* dss = vs + kTileRows * P.ld;    // 64 × 65
-  float* ms = dss + kTileRows * kPadRow;
-  float* ls = ms + kTileRows;
-  float* Ds = ls + kTileRows;
-  int* kstate = reinterpret_cast<int*>(Ds + kTileRows);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kTileRows, h = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (P.T + kTile - 1) / kTile;
+  const int row0 = q0 + 16 * warp;
 
-  load_tile(q, b, h, q0, P, qs);
-  load_tile(dout, b, h, q0, P, dos);
-  // D_i = do_i · out_i, one warp a row; stored for the dk/dv launch
-  for (int r = warp; r < kTileRows; r += kThreads / 32) {
-    const int t = q0 + r;
-    float acc = 0.f;
-    if (t < P.T) {
-      const float* o = out.row(b, h, t);
-      const float* g = dout.row(b, h, t);
-      for (int d = lane; d < P.hd; d += 32) acc = fmaf(g[d], o[d], acc);
-    }
+  // q and do land in stage 1's k and v slots
+  stage_rows<kVec>(q, b, h, q0, P, key_stage(smem, 1, P).k);
+  stage_rows<kVec>(dout, b, h, q0, P, key_stage(smem, 1, P).v);
+  load_key_tile<kVec>(k, v, b, h, q0, 0, P, key_stage(smem, 0, P));
+  cp_async_commit();
+  float m[2], rl[2];  // rows g and g + 8: the row max and 1 / the row sum
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      const long long i = (static_cast<long long>(b) * P.H + h) * P.T + t;
-      Ds[r] = acc;
-      ms[r] = t < P.T ? row_max[i] : 0.f;
-      ls[r] = t < P.T ? row_sum[i] : 1.f;
-      if (t < P.T) delta[i] = acc;
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const long long i = (static_cast<long long>(b) * P.H + h) * P.T + row;
+    m[r] = row < P.T ? row_max[i] : 0.f;
+    rl[r] = 1.f / (row < P.T ? row_sum[i] : 1.f);
   }
+  cp_async_wait_all();
+  __syncthreads();
+  RawFrag qf[kSteps], df[kSteps];
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    qf[kk] = load_a(key_stage(smem, 1, P).k, P.ld, 16 * warp, kk, g, t);
+    df[kk] = load_a(key_stage(smem, 1, P).v, P.ld, 16 * warp, kk, g, t);
+  }
+  // dq_i = scale · Σ_j w (μ dP − D_i) k_j = scale · (Σ_j w μ dP k_j − D_i Σ_j w k_j):
+  // one sweep over the key tiles sums D_i = Σ_j w μ dP and both products
+  float D[2] = {0.f, 0.f};
+  float acc[kSteps][4], accw[kSteps][4];
+#pragma unroll
+  for (int nd = 0; nd < kSteps; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = accw[nd][e] = 0.f;
 
-  float acc[4][NC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
-
-  for (int k0 = 0; k0 < P.T; k0 += kTileRows) {
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait_all();
     __syncthreads();
-    load_tile(k, b, h, k0, P, ks);
-    load_tile(v, b, h, k0, P, vs);
-    load_key_state(b, k0, P, kstate);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot(qs, ks, P.hd, P.ld, ty, tx, s);
-    tile_dot(dos, vs, P.hd, P.ld, ty, tx, dp);
+    if (j + 1 < ntiles)
+      load_key_tile<kVec>(k, v, b, h, q0, (j + 1) * kTile, P, key_stage(smem, (j + 1) & 1, P));
+    cp_async_commit();
+    const KeyStage st = key_stage(smem, j & 1, P);
+    const int k0 = j * kTile;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kRowSteps; c0 += kChunk) {  // kChunk 8-key steps at a time
+      float s[kChunk][4], dp[kChunk][4];
+      score_tile<kSteps, kChunk>(s, qf, st.k + 8 * c0 * P.ld, P.ld, g, t);
+      score_tile<kSteps, kChunk>(dp, df, st.v + 8 * c0 * P.ld, P.ld, g, t);
+      const float* mu0 = st.mu + (16 * warp + g) * kMuLdRow + 2 * t + 8 * c0;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
+      for (int n = 0; n < kChunk; ++n) {
+        float mu[4] = {1.f, 1.f, 1.f, 1.f};
+        if (P.mult != nullptr) {
+          const float2 u0 = *reinterpret_cast<const float2*>(mu0 + 8 * n);
+          const float2 u1 = *reinterpret_cast<const float2*>(mu0 + 8 * kMuLdRow + 8 * n);
+          mu[0] = u0.x;
+          mu[1] = u0.y;
+          mu[2] = u1.x;
+          mu[3] = u1.y;
+        }
+        const int c = 8 * (c0 + n) + 2 * t;
+        const int2 km = *reinterpret_cast<const int2*>(st.km + c);
+        const float kb[2] = {key_bias(k0 + c, km.x, P.T), key_bias(k0 + c + 1, km.y, P.T)};
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kc = tx + 16 * c;
-        const PairGrad pg =
-            pair_grad(s[a][c], dp[a][c], kstate[kc], q0 + r, k0 + kc, ms[r], ls[r], Ds[r], P);
-        dss[r * kPadRow + kc] = pg.ds;
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float w = expf(fmaf(s[n][e], P.scale, kb[e & 1]) - m[r]) * rl[r];  // 0 past T
+          const float wd = w * (mu[e] * dp[n][e]);
+          D[r] += wd;
+          s[n][e] = wd;
+          dp[n][e] = w;
+        }
       }
+      // acc += (w μ dP) · k, accw += w · k over these keys
+      row_product<kSteps, kChunk, true>(acc, s, st.k + 8 * c0 * P.ld, P.ld, g, t, accw, dp);
     }
-    __syncthreads();
-    tile_mm<false>(dss, ks, P.hd, P.ld, ty, tx, acc);
   }
-  store_rows(dq, b, h, q0, P, ty, tx, acc, nullptr);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // D is complete: stored for the dk/dv launch
+    D[r] = quad_sum(D[r]);
+    const int row = row0 + g + 8 * r;
+    if (t == 0 && row < P.T) delta[(static_cast<long long>(b) * P.H + h) * P.T + row] = D[r];
+  }
+#pragma unroll
+  for (int nd = 0; nd < kSteps; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = (acc[nd][e] - D[e >> 1] * accw[nd][e]) * P.scale;
+  store_strip<kSteps>(dq, b, h, row0, P, g, t, acc, nullptr);
 }
 
+// A stage of the dk/dv ring: q and do (64 × ld each), μ (queries × keys),
+// and the queries' m, l and D.
+struct QueryStage {
+  float* q;
+  float* dout;
+  float* mu;  // 64 × kMuLdCol, when P.mult
+  float* m;
+  float* l;
+  float* D;
+};
+
+__device__ __forceinline__ int query_stage_floats(const Problem& P) {
+  return 2 * kTile * P.ld + P.mu_floats + 3 * kTile;
+}
+
+__device__ __forceinline__ QueryStage query_stage(float* smem, int s, const Problem& P) {
+  float* base = smem + s * query_stage_floats(P);
+  QueryStage st;
+  st.q = base;
+  st.dout = base + kTile * P.ld;
+  st.mu = st.dout + kTile * P.ld;
+  st.m = st.mu + P.mu_floats;
+  st.l = st.m + kTile;
+  st.D = st.l + kTile;
+  return st;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_query_tile(const View& q, const View& dout, int b, int h,
+                                                int q0, int k0, const float* row_max,
+                                                const float* row_sum, const float* delta,
+                                                const Problem& P, const QueryStage& st) {
+  stage_rows<kVec>(q, b, h, q0, P, st.q);
+  stage_rows<kVec>(dout, b, h, q0, P, st.dout);
+  if (P.mult != nullptr) stage_mult(P, q0, k0, st.mu, kMuLdCol);
+  const long long bh = (static_cast<long long>(b) * P.H + h) * P.T;
+  stage_vector(row_max + bh, q0, P.T, st.m);
+  stage_vector(row_sum + bh, q0, P.T, st.l);
+  stage_vector(delta + bh, q0, P.T, st.D);
+}
+
+template <bool kVec, int kSteps>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(View q, View k, View v, View dout, View dk, View dv,
                      const float* __restrict__ row_max, const float* __restrict__ row_sum,
                      const float* __restrict__ delta, Problem P) {
-  extern __shared__ float smem[];
-  float* ks = smem;                      // 64 × ld
-  float* vs = ks + kTileRows * P.ld;     // 64 × ld
-  float* qs = vs + kTileRows * P.ld;     // 64 × ld
-  float* dos = qs + kTileRows * P.ld;    // 64 × ld
-  float* pms = dos + kTileRows * P.ld;   // 64 × 65: w ∘ μ, (query, key)
-  float* dss = pms + kTileRows * kPadRow;  // 64 × 65: ds, (query, key)
-  float* ms = dss + kTileRows * kPadRow;
-  float* ls = ms + kTileRows;
-  float* Ds = ls + kTileRows;
-  int* kstate = reinterpret_cast<int*>(Ds + kTileRows);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = blockIdx.x * kTileRows, h = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (P.T + kTile - 1) / kTile;
+  const int key0 = k0 + 16 * warp;
 
-  load_tile(k, b, h, k0, P, ks);
-  load_tile(v, b, h, k0, P, vs);
-  load_key_state(b, k0, P, kstate);
-  float dka[4][NC], dva[4][NC];
+  // k and v land in stage 1's q and do slots
+  stage_rows<kVec>(k, b, h, k0, P, query_stage(smem, 1, P).q);
+  stage_rows<kVec>(v, b, h, k0, P, query_stage(smem, 1, P).dout);
+  load_query_tile<kVec>(q, dout, b, h, 0, k0, row_max, row_sum, delta, P, query_stage(smem, 0, P));
+  cp_async_commit();
+  float kb[2];  // the bias of keys g and g + 8 of the warp
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dka[a][c] = dva[a][c] = 0.f;
-
-  for (int q0 = 0; q0 < P.T; q0 += kTileRows) {
-    __syncthreads();
-    load_tile(q, b, h, q0, P, qs);
-    load_tile(dout, b, h, q0, P, dos);
-    load_row_stats(b, h, q0, P, row_max, row_sum, delta, ms, ls, Ds);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot(qs, ks, P.hd, P.ld, ty, tx, s);   // rows: queries, columns: keys
-    tile_dot(dos, vs, P.hd, P.ld, ty, tx, dp);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kc = tx + 16 * c;
-        const PairGrad pg =
-            pair_grad(s[a][c], dp[a][c], kstate[kc], q0 + r, k0 + kc, ms[r], ls[r], Ds[r], P);
-        pms[r * kPadRow + kc] = pg.pm;
-        dss[r * kPadRow + kc] = pg.ds;
-      }
-    }
-    __syncthreads();
-    // this thread's keys are rows ty + 16a of dk / dv: sum over the queries
-    tile_mm<true>(pms, dos, P.hd, P.ld, ty, tx, dva);
-    tile_mm<true>(dss, qs, P.hd, P.ld, ty, tx, dka);
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + g + 8 * r;
+    kb[r] = key_bias(key, key < P.T ? P.kmask[static_cast<long long>(b) * P.T + key] : 0, P.T);
   }
-  store_rows(dk, b, h, k0, P, ty, tx, dka, nullptr);
-  store_rows(dv, b, h, k0, P, ty, tx, dva, nullptr);
+  cp_async_wait_all();
+  __syncthreads();
+  RawFrag kf[kSteps], vf[kSteps];
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    kf[kk] = load_a(query_stage(smem, 1, P).q, P.ld, 16 * warp, kk, g, t);
+    vf[kk] = load_a(query_stage(smem, 1, P).dout, P.ld, 16 * warp, kk, g, t);
+  }
+  float dka[kSteps][4], dva[kSteps][4];
+#pragma unroll
+  for (int nd = 0; nd < kSteps; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + 1 < ntiles)
+      load_query_tile<kVec>(q, dout, b, h, (j + 1) * kTile, k0, row_max, row_sum, delta, P,
+                            query_stage(smem, (j + 1) & 1, P));
+    cp_async_commit();
+    const QueryStage st = query_stage(smem, j & 1, P);
+    const int q0 = j * kTile;
+
+    // transposed scores and dP: rows are the warp's keys, columns the
+    // queries, computed as the dq kernel computes them (bit for bit)
+#pragma unroll 1
+    for (int c0 = 0; c0 < kRowSteps; c0 += kChunk) {  // kChunk 8-query steps at a time
+      float s[kChunk][4], dp[kChunk][4];
+      score_tile<kSteps, kChunk, true>(s, kf, st.q + 8 * c0 * P.ld, P.ld, g, t);
+      score_tile<kSteps, kChunk, true>(dp, vf, st.dout + 8 * c0 * P.ld, P.ld, g, t);
+      const float* mu0 = st.mu + (8 * c0 + 2 * t) * kMuLdCol + 16 * warp + g;
+#pragma unroll
+      for (int n = 0; n < kChunk; ++n) {
+        const int cq = 8 * (c0 + n) + 2 * t;
+        const float rl[2] = {1.f / st.l[cq], 1.f / st.l[cq + 1]};  // inf past T: not used
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = cq + (e & 1), r = e >> 1;
+          const float w =
+              q0 + c < P.T ? expf(fmaf(s[n][e], P.scale, kb[r]) - st.m[c]) * rl[e & 1] : 0.f;
+          const float mu =
+              P.mult != nullptr ? mu0[(8 * n + (e & 1)) * kMuLdCol + 8 * r] : 1.f;
+          s[n][e] = w * mu;                                     // w ∘ μ
+          dp[n][e] = w * (dp[n][e] * mu - st.D[c]) * P.scale;  // ds
+        }
+      }
+      row_product<kSteps, kChunk>(dva, s, st.dout + 8 * c0 * P.ld, P.ld, g, t);  // dv += (w ∘ μ)ᵀ · do
+      row_product<kSteps, kChunk>(dka, dp, st.q + 8 * c0 * P.ld, P.ld, g, t);    // dk += dsᵀ · q
+    }
+  }
+  store_strip<kSteps>(dk, b, h, key0, P, g, t, dka, nullptr);
+  store_strip<kSteps>(dv, b, h, key0, P, g, t, dva, nullptr);
 }
 
 // ------------------------------------------------------------------- launch
@@ -399,42 +763,70 @@ View view(const float* p, const long long* s) {
   return View{const_cast<float*>(p), s[0], s[1], s[2]};
 }
 
-size_t tile_bytes(int ld) { return static_cast<size_t>(kTileRows) * ld * sizeof(float); }
-size_t square_bytes() { return static_cast<size_t>(kTileRows) * kPadRow * sizeof(float); }
-size_t stats_bytes(int n) { return static_cast<size_t>(n) * kTileRows * sizeof(float); }
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+bool aligned16(const View& v) {
+  return (reinterpret_cast<uintptr_t>(v.p) & 15) == 0 && v.sb % 4 == 0 && v.sh % 4 == 0 &&
+         v.st % 4 == 0;
 }
 
+Problem problem(const int* kmask, const float* mult, int H, int T, int hd, float scale) {
+  Problem P;
+  P.kmask = kmask;
+  P.mult = mult;
+  P.H = H;
+  P.T = T;
+  P.hd = hd;
+  P.mu_floats = 0;
+  P.mult_vec = mult != nullptr && T % 4 == 0 && (reinterpret_cast<uintptr_t>(mult) & 15) == 0;
+  P.scale = scale;
+  return P;
+}
+
+// hd ≤ 48 runs 6 k-steps (every config but the largest), 48 < hd ≤ 64 runs 8
+template <int kSteps>
+void pad_head_dim(Problem& P) {
+  P.hdp = 8 * kSteps;
+  P.ld = P.hdp + 4;
+}
+
+template <bool kVec, int kSteps>
 cudaError_t launch_fwd(View q, View k, View v, View o, float* rmax, float* rsum, int B,
-                       const Problem& P, cudaStream_t stream) {
-  const size_t smem = 3 * tile_bytes(P.ld) + square_bytes() + stats_bytes(1);
-  cudaError_t err = allow_smem(attn_fwd_kernel, smem);
+                       Problem P, cudaStream_t stream) {
+  pad_head_dim<kSteps>(P);
+  P.mu_floats = P.mult != nullptr ? kTile * kMuLdRow : 0;
+  const size_t smem = 2 * sizeof(float) * (2 * kTile * P.ld + P.mu_floats + kTile);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<kVec, kSteps>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((P.T + kTileRows - 1) / kTileRows, P.H, B);
-  attn_fwd_kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, rmax, rsum, P);
+  const dim3 grid((P.T + kTile - 1) / kTile, P.H, B);
+  attn_fwd_kernel<kVec, kSteps><<<grid, kThreads, smem, stream>>>(q, k, v, o, rmax, rsum, P);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bwd(View q, View k, View v, View o, View g, View dq, View dk, View dv,
-                       const float* rmax, const float* rsum, float* delta, int B,
-                       const Problem& P, cudaStream_t stream) {
-  const dim3 grid((P.T + kTileRows - 1) / kTileRows, P.H, B);
-  const size_t smem_dq = 4 * tile_bytes(P.ld) + square_bytes() + stats_bytes(4);
-  cudaError_t err = allow_smem(attn_bwd_dq_kernel, smem_dq);
+template <bool kVec, int kSteps>
+cudaError_t launch_bwd(View q, View k, View v, View g, View dq, View dk, View dv,
+                       const float* rmax, const float* rsum, float* delta, int B, Problem P,
+                       cudaStream_t stream) {
+  pad_head_dim<kSteps>(P);
+  const dim3 grid((P.T + kTile - 1) / kTile, P.H, B);
+  P.mu_floats = P.mult != nullptr ? kTile * kMuLdRow : 0;
+  const size_t smem_dq = 2 * sizeof(float) * (2 * kTile * P.ld + P.mu_floats + kTile);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<kVec, kSteps>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_dq));
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<<<grid, kThreads, smem_dq, stream>>>(q, k, v, o, g, dq, rmax, rsum, delta,
-                                                          P);
+  attn_bwd_dq_kernel<kVec, kSteps><<<grid, kThreads, smem_dq, stream>>>(q, k, v, g, dq, rmax, rsum, delta,
+                                                                 P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem_kv = 4 * tile_bytes(P.ld) + 2 * square_bytes() + stats_bytes(4);
-  err = allow_smem(attn_bwd_dkdv_kernel, smem_kv);
+  P.mu_floats = P.mult != nullptr ? kTile * kMuLdCol : 0;
+  const size_t smem_kv = 2 * sizeof(float) * (2 * kTile * P.ld + P.mu_floats + 3 * kTile);
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<kVec, kSteps>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_kv));
   if (err != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<<<grid, kThreads, smem_kv, stream>>>(q, k, v, g, dk, dv, rmax, rsum,
-                                                            delta, P);
+  attn_bwd_dkdv_kernel<kVec, kSteps><<<grid, kThreads, smem_kv, stream>>>(q, k, v, g, dk, dv, rmax, rsum,
+                                                                   delta, P);
   return cudaGetLastError();
 }
 
@@ -459,14 +851,20 @@ cudaError_t ssd_attn_fwd_launch(const float* q, const float* k, const float* v, 
                                 const long long* strides, int B, int H, int T, int hd,
                                 float scale, cudaStream_t stream) {
   if (!valid(B, H, T, hd)) return cudaErrorInvalidValue;
-  const Problem P{kmask, mult, H, T, hd, hd | 1, scale};
+  const Problem P = problem(kmask, mult, H, T, hd, scale);
   const View vq = view(q, strides), vk = view(k, strides + 3), vv = view(v, strides + 6),
              vo = view(o, strides + 9);
-  return launch_fwd(vq, vk, vv, vo, row_max, row_sum, B, P, stream);
+  const bool vec = hd % 4 == 0 && aligned16(vq) && aligned16(vk) && aligned16(vv);
+  if (hd <= 48)
+    return vec ? launch_fwd<true, 6>(vq, vk, vv, vo, row_max, row_sum, B, P, stream)
+               : launch_fwd<false, 6>(vq, vk, vv, vo, row_max, row_sum, B, P, stream);
+  return vec ? launch_fwd<true, 8>(vq, vk, vv, vo, row_max, row_sum, B, P, stream)
+             : launch_fwd<false, 8>(vq, vk, vv, vo, row_max, row_sum, B, P, stream);
 }
 
 // The two backward launches. q, k, v, o, dout, dq, dk, dv: (B, H, T, hd) f32
-// views as above, strides in that order (24 values); row_max, row_sum from
+// views as above, strides in that order (24 values; o is checked by the
+// wrapper but read by neither kernel, see D above); row_max, row_sum from
 // the forward; delta (B, H, T) f32 scratch, written by the first launch and
 // read by the second.
 cudaError_t ssd_attn_bwd_launch(const float* q, const float* k, const float* v, const float* o,
@@ -475,12 +873,21 @@ cudaError_t ssd_attn_bwd_launch(const float* q, const float* k, const float* v, 
                                 float* dq, float* dk, float* dv, const long long* strides, int B,
                                 int H, int T, int hd, float scale, cudaStream_t stream) {
   if (!valid(B, H, T, hd)) return cudaErrorInvalidValue;
-  const Problem P{kmask, mult, H, T, hd, hd | 1, scale};
+  const Problem P = problem(kmask, mult, H, T, hd, scale);
   const View vq = view(q, strides), vk = view(k, strides + 3), vv = view(v, strides + 6),
-             vo = view(o, strides + 9), vg = view(dout, strides + 12),
+             vg = view(dout, strides + 12),
              vdq = view(dq, strides + 15), vdk = view(dk, strides + 18),
              vdv = view(dv, strides + 21);
-  return launch_bwd(vq, vk, vv, vo, vg, vdq, vdk, vdv, row_max, row_sum, delta, B, P, stream);
+  const bool vec = hd % 4 == 0 && aligned16(vq) && aligned16(vk) && aligned16(vv) && aligned16(vg);
+  if (hd <= 48)
+    return vec ? launch_bwd<true, 6>(vq, vk, vv, vg, vdq, vdk, vdv, row_max, row_sum, delta, B, P,
+                                     stream)
+               : launch_bwd<false, 6>(vq, vk, vv, vg, vdq, vdk, vdv, row_max, row_sum, delta, B, P,
+                                      stream);
+  return vec ? launch_bwd<true, 8>(vq, vk, vv, vg, vdq, vdk, vdv, row_max, row_sum, delta, B, P,
+                                   stream)
+             : launch_bwd<false, 8>(vq, vk, vv, vg, vdq, vdk, vdv, row_max, row_sum, delta, B, P,
+                                    stream);
 }
 
 }  // extern "C"

@@ -162,7 +162,11 @@ def _attn_case(B, T, H, hd, cuda, drop):
 @pytest.mark.parametrize(
     "B,T,H,hd,drop",
     [(5, 640, 6, 48, False), (5, 640, 6, 48, True), (8, 625, 6, 48, False),
-     (2, 70, 2, 16, True), (2, 1, 6, 48, False), (2, 100, 2, 64, True)],
+     (2, 70, 2, 16, True), (2, 1, 6, 48, False), (2, 100, 2, 64, True),
+     (32, 384, 6, 48, True),  # the flagship training shape
+     (3, 65, 6, 48, True),  # one key past a 64-row tile
+     (2, 130, 3, 20, True),  # hd 20: the last k-step zero-padded, 16-byte staging
+     (2, 130, 3, 18, True)],  # hd 18: 4-byte staging
 )
 def test_attention_kernels_match_plain(cuda, B, T, H, hd, drop):
     q, k, v, g, mask, mult = _attn_case(B, T, H, hd, cuda, drop)
@@ -178,6 +182,10 @@ def test_attention_kernels_match_plain(cuda, B, T, H, hd, drop):
     # padded keys get exactly zero dk and dv
     pad = mask[:, None, :, None] == 0
     assert bool((dk.masked_select(pad) == 0).all() and (dv.masked_select(pad) == 0).all())
+    # one owner per output, no atomics: a second backward is bit-identical
+    again = attn.ATTN_BWD(q, k, v, out, g, row_max, row_sum, mask, mult)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        assert torch.equal(a, b), name
 
 
 def test_attention_and_depthwise_wrappers_reject_bad_cuda_input(cuda):
