@@ -16,10 +16,14 @@ failing loudly:
              (off for matmuls and cuDNN for the whole run: the parity phases
              need fp32; the attention kernels' own products are 3×TF32,
              which keeps fp32 accuracy).
-2. kernel  — the log-mel kernel against its plain PyTorch version at the
-             serving buckets (B ∈ {1, 8}, 8 channels, 4 000–12 000 valid
-             samples in a 12 800-sample bucket): normalized features within
-             atol = rtol = 1e-4; kernel, plain and ``torch.stft`` times.
+2. kernel  — the log-mel kernel (a shared-memory FFT) against its plain
+             PyTorch version at the serving buckets (B ∈ {1, 8}, 8 channels,
+             4 000–12 000 valid samples in a 12 800-sample bucket):
+             normalized features within atol = rtol = 1e-4; kernel, plain,
+             ``torch.stft`` and whole ``logmel_batch`` times; the bound from
+             the FFT plan's operations beside the Pallas cost estimate's
+             dense-DFT one; the kernel must be ≥ 2× faster than the
+             dense-DFT kernel's recorded times and faster than ``torch.stft``.
 3. engine  — the full-width ``configs/tpu_fast_plus.yaml`` model (random
              flax-style weights from a seed) saved in the port's checkpoint
              format, loaded with ``InferenceEngine.from_checkpoint(...,
@@ -38,7 +42,10 @@ failing loudly:
              empty target, an impossible row and a row of repeated labels:
              α / β where finite within rtol 1e-5, per-sample loss rtol 1e-5,
              logits gradients atol 1e-5; values and logits gradients against
-             ``F.ctc_loss`` too. Kernel, plain and ``F.ctc_loss`` times.
+             ``F.ctc_loss`` too; whether α is bit-equal to the plain recursion.
+             Kernel, plain and ``F.ctc_loss`` times (its forward with the
+             timing mode ``cuda_ms_mode`` chose); α must be ≥ 1.25× faster
+             than the shared-memory kernel's recorded times.
 7. train   — a synthetic corpus (20 voiced utterances, cached features from
              the port's featurizer, WavLM-width teacher features, a JSONL
              index, a JSON config inlining ``configs/tpu_fast_plus.yaml``)
@@ -190,7 +197,7 @@ def synchronizes(fn) -> bool:
     return waited
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def cuda_ms_mode(fn, iters: int = 50, warmup: int = 5) -> tuple:
     """Mean device time of ``fn()`` over ``iters`` warm launches. The stream
     first spins (``torch.cuda._sleep``) while the host queues the launches,
     so a kernel shorter than its host-side launch is timed back to back on
@@ -201,7 +208,8 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     then it fails. A function that itself waits for the device (the plain
     log-mel copies its constants from the host; the plain CTC recursions
     queue thousands of launches) cannot be queued behind a spin: it is timed
-    without one, host gaps included, and says so."""
+    without one, host gaps included, and says so. Returns ``(ms, mode)``,
+    mode ``"spin"`` or ``"host-paced"``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -216,7 +224,7 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         if not outran:
-            return start.elapsed_time(end) / iters
+            return start.elapsed_time(end) / iters, "spin"
         if attempt == 0 and synchronizes(fn):
             start.record()
             for _ in range(iters):
@@ -226,10 +234,20 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
             where = f"{fn.__code__.co_filename.rsplit('/', 1)[-1]}:{fn.__code__.co_firstlineno}"
             print(f"[time] the function at {where} waits for the device: timed without a spin, "
                   f"host gaps included")
-            return start.elapsed_time(end) / iters
+            return start.elapsed_time(end) / iters, "host-paced"
         cycles *= 2
     raise SmokeFailure(f"cuda_ms: {iters} launches took the host longer to queue than a "
                        f"{cycles // 2}-cycle device spin")
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """:func:`cuda_ms_mode`'s time alone."""
+    return cuda_ms_mode(fn, iters, warmup)[0]
+
+
+def bound(flops: float, nbytes: float, flops_per_s: float = H100_FP32_FLOPS) -> tuple:
+    t_ops, t_bytes = flops / flops_per_s * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def close(a: torch.Tensor, b: torch.Tensor, atol: float, rtol: float) -> bool:
@@ -288,6 +306,32 @@ def stft_logmel(emg: torch.Tensor, cfg: feat.FeaturizerConfig, window, mel_t) ->
     return 10.0 * torch.log10(torch.clamp(power @ mel_t, min=1e-10))
 
 
+# the log-mel kernel's times before its FFT redesign (PERF.md §6, H100 80GB
+# HBM3 at 700 W): the FFT kernel must beat each by LOGMEL_GATE, and the
+# torch.stft composite timed in the same call
+DFT_LOGMEL_MS = {1: 0.1328, 8: 0.6504}
+LOGMEL_GATE = 2.0
+
+
+def logmel_work(cfg: feat.FeaturizerConfig, frames: int) -> tuple:
+    """(the FFT kernel's flops, the Pallas cost estimate's dense-DFT flops,
+    the floats of the kernel's constants) for ``frames`` frames. The
+    kernel's flops: per pair of frames the windowed load (2·n_fft), the
+    transform's butterflies over the plan's passes and their twiddle
+    products where the twiddle is not 1 (``feat.fft_flops``), the split and
+    power (12 a bin); per frame the banded mel (2 a non-zero band weight)
+    and the dB (3 a mel). Its
+    constants: the radices, the twiddles, the window, the packed bands and
+    their first bins."""
+    fb = melmod.mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
+    pair = 2 * cfg.n_fft + feat.fft_flops(cfg.n_fft) + 12 * cfg.n_bins
+    fft = frames * (pair / 2 + 2 * np.count_nonzero(fb) + 3 * cfg.n_mels)
+    dense = frames * (4 * cfg.n_fft * cfg.n_bins + 3 * cfg.n_bins + 2 * cfg.n_bins * cfg.n_mels)
+    consts = (len(feat.fft_radices(cfg.n_fft)) + 3 * cfg.n_fft + feat.mel_bands(fb)[1].size
+              + cfg.n_mels)
+    return fft, dense, consts
+
+
 def phase_kernel(rng: np.random.Generator) -> dict:
     cfg = feat.FeaturizerConfig(**FEATURES["emg"])
     dev = torch.device("cuda")
@@ -312,25 +356,37 @@ def phase_kernel(rng: np.random.Generator) -> dict:
         ms = cuda_ms(lambda: feat.LOGMEL(x, cfg))
         plain_ms = cuda_ms(lambda: feat.logmel_core_plain(x, cfg))
         library_ms = cuda_ms(lambda: stft_logmel(x, cfg, window, mel_t))
+        # ~30 launches a call: 10 calls stay inside the device's launch queue
+        batch_ms = cuda_ms(lambda: feat.logmel_batch(x, lens, cfg), iters=10)
         T = cfg.frame_count(BUCKET)
         rows_frames = B * CHANNELS * T
-        flops = rows_frames * (4 * cfg.n_fft * cfg.n_bins + 3 * cfg.n_bins
-                               + 2 * cfg.n_bins * cfg.n_mels)
-        nbytes = 4 * (B * BUCKET * CHANNELS + rows_frames * cfg.n_mels
-                      + 2 * cfg.n_fft * cfg.n_bins + cfg.n_bins * cfg.n_mels + cfg.n_fft)
-        t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-        bound_ms = max(t_ops, t_bytes)
+        flops, dense_flops, consts = logmel_work(cfg, rows_frames)
+        # input and output once, and the kernel's constants
+        nbytes = 4 * (B * BUCKET * CHANNELS + rows_frames * cfg.n_mels + consts)
+        bound_ms, by = bound(flops, nbytes)
+        dense_ms = bound(dense_flops, nbytes)[0]
         print(f"[kernel] B={B} rows={B * CHANNELS} frames={T}: max_abs_err={err:.3e} "
               f"(tol {FEAT_TOL}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.stft {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; "
-              f"{flops / ms / 1e9:.1f} TFLOP/s achieved)")
+              f"torch.stft {library_ms:.4f} ms; bound {bound_ms:.5f} ms ({by}; FFT plan "
+              f"{feat.fft_radices(cfg.n_fft)}: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB; "
+              f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s achieved); the "
+              f"Pallas cost estimate's dense-DFT bound {dense_ms:.4f} ms "
+              f"({dense_flops / 1e9:.3f} GFLOP)")
+        print(f"[kernel] B={B}: logmel_batch (kernel + 80 dB clip + z-norm) {batch_ms:.4f} ms; "
+              f"the kernel is {100 * ms / batch_ms:.1f} % of it")
+        limit = DFT_LOGMEL_MS[B] / LOGMEL_GATE
+        print(f"[kernel] B={B}: {DFT_LOGMEL_MS[B] / ms:.2f}x faster than the dense-DFT kernel's "
+              f"{DFT_LOGMEL_MS[B]} ms (gate: ≥ {LOGMEL_GATE}x, ≤ {limit:.4f} ms); "
+              f"{library_ms / ms:.2f}x torch.stft's time (gate: faster)")
+        check(ms <= limit, f"log-mel kernel at B={B}: {ms:.4f} ms > {limit:.4f} ms, less than "
+              f"{LOGMEL_GATE}x faster than the dense-DFT kernel")
+        check(ms < library_ms, f"log-mel kernel at B={B}: {ms:.4f} ms, not faster than the "
+              f"torch.stft composite's {library_ms:.4f} ms")
         entry = {
             "name": "logmel", "route": "cuda", "source": "ssd_tpu_torch/csrc/logmel.cu",
             "replaces": "ssd_tpu/ops/featurizer.py:239",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
         }
     return entry  # the B=8 (largest bucket) entry
 
@@ -501,6 +557,10 @@ CTC_GRAD_ATOL = 1e-5  # logits gradients, kernels vs plain
 TORCH_CTC_TOL = dict(rtol=1e-4, atol=1e-4)
 TORCH_CTC_GRAD_RTOL, TORCH_CTC_GRAD_ULPS = 1e-3, 8
 CTC_OPS_PER_STATE = 12  # per state and step: 10 flops + 2 transcendentals (the Pallas cost estimate)
+# the α kernel's times before its register-resident redesign (PERF.md §6,
+# H100 80GB HBM3 at 700 W): the kernel must beat each by ALPHA_GATE
+SMEM_ALPHA_MS = {"config": 0.4429, "flagship": 0.2616}
+ALPHA_GATE = 1.25
 TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, fp32 both, TF32 off
 TRAIN_GRAD_REL = 1e-3  # max abs err ≤ this × the tensor's max-abs gradient, or …
 TRAIN_GRAD_FLOOR = 1e-6  # … this: the attention key bias and the depthwise-conv bias
@@ -579,11 +639,13 @@ def phase_ctc(rng: np.random.Generator) -> dict:
         bfinal = ctc._final_states(tl, S2)
         skip_from = F.pad(skip[:, 2:], (0, 2), value=False)
         skip_from_f, ll32 = skip_from.float(), ll.to(torch.int32)
-        a_err, a_ok = finite_close(ctc.CTC_ALPHA(lp_ext, skipf), ctc.forward_alphas_plain(lp_ext, skip),
-                                   CTC_REC_RTOL)
+        got_a, want_a = ctc.CTC_ALPHA(lp_ext, skipf), ctc.forward_alphas_plain(lp_ext, skip)
+        a_err, a_ok = finite_close(got_a, want_a, CTC_REC_RTOL)
+        a_equal = torch.equal(got_a, want_a)
         b_err, b_ok = finite_close(ctc.CTC_BETA(lp_ext, skip_from_f, bfinal, ll32),
                                    ctc.betas_plain(lp_ext, ll, bfinal, skip_from), CTC_REC_RTOL)
         check(a_ok, f"α kernel vs plain at {label}: max abs err {a_err}")
+        print(f"[ctc] {label}: α kernel bit-equal to the plain recursion on the card: {a_equal}")
         check(b_ok, f"β kernel vs plain at {label}: max abs err {b_err}")
         loss, grad = loss_and_grad(logits, ll, tg, tl)
         with plain_recursions():
@@ -625,19 +687,28 @@ def phase_ctc(rng: np.random.Generator) -> dict:
             x = lp.detach().requires_grad_(True)
             ctc.ctc_loss(x, ll, tg, tl, BLANK).sum().backward()
 
+        torch_fwd_ms, torch_fwd_mode = cuda_ms_mode(
+            lambda: F.ctc_loss(lp_t, tg, ll_h, tl_h, blank=BLANK, reduction="none", zero_infinity=True))
+        print(f"[ctc] {label}: F.ctc_loss forward {torch_fwd_ms:.4f} ms, timed {torch_fwd_mode} "
+              f"(the α kernel's library time)")
         t = {
             "alpha": cuda_ms(lambda: ctc.CTC_ALPHA(lp_ext, skipf)),
             "beta": cuda_ms(lambda: ctc.CTC_BETA(lp_ext, skip_from_f, bfinal, ll32)),
             "alpha_plain": cuda_ms(lambda: ctc.forward_alphas_plain(lp_ext, skip), iters=3, warmup=1),
             "beta_plain": cuda_ms(lambda: ctc.betas_plain(lp_ext, ll, bfinal, skip_from), iters=3, warmup=1),
-            "torch_fwd": cuda_ms(lambda: F.ctc_loss(lp_t, tg, ll_h, tl_h, blank=BLANK, reduction="none",
-                                                    zero_infinity=True)),
+            "torch_fwd": torch_fwd_ms,
             "torch_fwd_bwd": cuda_ms(torch_fwd_bwd),
             # dozens of launches a call: 5 calls stay inside the device's launch queue
             "port_fwd": cuda_ms(lambda: ctc.ctc_loss(lp, ll, tg, tl, BLANK), iters=5),
             "port_fwd_bwd": cuda_ms(port_fwd_bwd, iters=5),
         }
         times[label] = t
+        limit = SMEM_ALPHA_MS[label] / ALPHA_GATE
+        print(f"[ctc] {label}: α {t['alpha']:.4f} ms, {t['alpha'] * 1e3 / T:.3f} µs a step, "
+              f"{SMEM_ALPHA_MS[label] / t['alpha']:.2f}x faster than the shared-memory kernel's "
+              f"{SMEM_ALPHA_MS[label]} ms (gate: ≥ {ALPHA_GATE}x, ≤ {limit:.4f} ms)")
+        check(t["alpha"] <= limit, f"α kernel at {label}: {t['alpha']:.4f} ms > {limit:.4f} ms, less "
+              f"than {ALPHA_GATE}x faster than the shared-memory kernel")
         n = T * B * S2
         for name, err, extra in (("alpha", a_err, 4 * B * S2), ("beta", b_err, 8 * B * S2 + 4 * B)):
             nbytes = 4 * 2 * n + extra
@@ -924,11 +995,6 @@ SDPA_BACKEND = SDPBackend.EFFICIENT_ATTENTION  # fp32 SDPA on the card: 3xTF32 t
 SIMT_ATTN_MS = {"config": {"attention_fwd": 0.2168, "attention_bwd": 0.8317},
                "flagship": {"attention_fwd": 0.3815, "attention_bwd": 1.4177}}
 ATTN_GATE = 1.25
-
-
-def bound(flops: float, nbytes: float, flops_per_s: float = H100_FP32_FLOPS) -> tuple:
-    t_ops, t_bytes = flops / flops_per_s * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def sdpa_bias(mask: torch.Tensor, heads: int) -> torch.Tensor:

@@ -7,7 +7,9 @@ z-normalization with ``std + 1e-8``.
 
 The frame → mel → log core (:func:`logmel_core`) dispatches on the device
 of its input: a CUDA tensor goes to the hand-written kernel in
-``csrc/logmel.cu`` (the counterpart of the Pallas ``_fused_kernel``), a CPU
+``csrc/logmel.cu`` (the counterpart of the Pallas ``_fused_kernel``; a
+shared-memory FFT with a banded mel projection, planned on the host by
+:func:`fft_radices`, :func:`fft_twiddles` and :func:`mel_bands`), a CPU
 tensor to the plain version :func:`logmel_core_plain`. There is no fall
 back: a CUDA tensor reaches the kernel or raises. The clip and the z-norm
 stay in plain torch around the core, where they sit outside the Pallas
@@ -170,11 +172,104 @@ def logmel_core_plain(emg: torch.Tensor, cfg: FeaturizerConfig) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# The kernel's host-side plan (also what the CPU tests emulate)
+# --------------------------------------------------------------------------
+
+# butterflies written out in csrc/logmel.cu, in the order the plan takes
+# them; any other prime factor p gets the generic p-point pass
+FFT_RADICES = (4, 2, 5, 3)
+
+
+def fft_radices(n: int) -> Tuple[int, ...]:
+    """The passes of the kernel's mixed-radix Stockham FFT of length ``n``:
+    :data:`FFT_RADICES` in order, each as often as it divides, then the
+    other primes ascending. 320 → (4, 4, 4, 5); 322 → (2, 7, 23)."""
+    out = []
+    for p in FFT_RADICES:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+    p = 7
+    while n > 1:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+        p += 2
+    return tuple(out)
+
+
+def fft_twiddles(n: int) -> np.ndarray:
+    """(n, 2) float32 roots of unity ``e^{−2πi m/n}`` (re, im), computed in
+    float64: every twiddle and every generic-pass root is a read of it."""
+    ang = -2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+def mel_bands(fb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack a ``(n_mels, n_bins)`` filterbank as bands: each filter's first
+    bin ``lo`` (int32, n_mels) and ``max_band`` weights from it (float32,
+    zero past the filter's last non-zero bin). ``lo`` is moved down where a
+    band would run past the last bin, its weights shifted to match, so that
+    ``lo + max_band ≤ n_bins`` and scattering the bands back gives ``fb``
+    exactly."""
+    n_mels, n_bins = fb.shape
+    spans = []
+    for row in fb:
+        nz = np.flatnonzero(row)
+        spans.append((int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 1))
+    width = max(hi - lo for lo, hi in spans)
+    lo = np.zeros(n_mels, np.int32)
+    w = np.zeros((n_mels, width), np.float32)
+    for m, (a, _) in enumerate(spans):
+        lo[m] = min(a, n_bins - width)
+        w[m] = fb[m, lo[m] : lo[m] + width]
+    return lo, w
+
+
+def fft_flops(n: int) -> int:
+    """Real flops of one ``n``-point complex transform in the kernel's plan.
+    A pass of radix R after passes of product Ns has n / R butterflies; the
+    (n / R)·(1 − 1/Ns) of them whose twiddle index k = j mod Ns is not 0
+    multiply inputs 1 … R − 1 by a twiddle (6 each), the others by 1 (none:
+    the whole first pass); each butterfly then costs radix 2: 4, 3: 18,
+    4: 16, 5: 48 real adds and multiplies. A generic pass of a prime R sums
+    R terms for each of its n outputs: a complex multiply-add (8) for each
+    term after the first whose root is not 1, a complex add (2) where it
+    is."""
+    own = {2: 4, 3: 18, 4: 16, 5: 48}
+    total, ns = 0, 1
+    for r in fft_radices(n):
+        m, stride = n // r, n // (ns * r)
+        if r in own:
+            total += (m - m // ns) * 6 * (r - 1) + m * own[r]  # m // ns butterflies have k = 0
+        else:
+            step = ((np.arange(m) % ns)[:, None] + ns * np.arange(r)) * stride  # (j, r')
+            ones = int(((step[:, :, None] * np.arange(1, r)) % n == 0).sum())
+            total += 8 * (n * (r - 1) - ones) + 2 * ones
+        ns *= r
+    return total
+
+
+# --------------------------------------------------------------------------
 # CUDA kernel wrapper
 # --------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+MAX_BINS = 176  # n_fft ≤ 351
+MAX_MELS = 80
+MAX_ROWS = 65535  # B·C: the grid's y dimension
+SMEM_LIMIT = 227 * 1024  # a CTA's dynamic shared memory on Hopper
+FRAMES_PER_CTA = 16  # halved where its shared memory would pass SMEM_LIMIT
+
+
+def logmel_smem_bytes(frames: int, hop: int, n_fft: int) -> int:
+    """Shared memory of a CTA of ``frames`` frames (as ``csrc/logmel.cu``'s
+    ``smem_bytes``): the signal span, 16-byte aligned, and two ping-pong
+    buffers of ``frames / 2`` complex transforms."""
+    span = ((frames - 1) * hop + n_fft + 3) & ~3
+    return 4 * (span + 2 * frames * n_fft)
 
 
 class LogmelKernel(CudaKernel):
@@ -186,44 +281,50 @@ class LogmelKernel(CudaKernel):
             "ssd_logmel",
             "logmel.cu",
             {
-                "ssd_logmel_launch": ([_P, _P, _P, _P] + [_I] * 7 + [_P], _I),
-                "ssd_logmel_bins_pad": ([], _I),
-                "ssd_logmel_mels_pad": ([], _I),
-                "ssd_logmel_chunk": ([], _I),
+                "ssd_logmel_launch": ([_P] * 7 + [_I] * 10 + [_P], _I),
             },
             error_string="ssd_cuda_error_string",
         ))
-        self._consts: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, int]] = {}
+        self._consts: Dict[tuple, tuple] = {}
         self._lock = threading.Lock()
 
-    def _constants(self, cfg: FeaturizerConfig, device: torch.device, lib):
-        """Windowed (cos, sin) DFT matrix and mel matrix, padded to the
-        kernel's tile sizes and kept on ``device``."""
+    def geometry(self, cfg: FeaturizerConfig, B: int, L: int, C: int) -> Tuple[int, int]:
+        """``(T, frames)`` of a launch on a ``(B, L, C)`` input; raises, before
+        anything is built, on what the kernel does not take."""
+        T = cfg.frame_count(L)
+        if T <= 0:
+            raise ValueError(f"padded length {L} shorter than n_fft={cfg.n_fft}")
+        if cfg.n_bins > MAX_BINS or cfg.n_mels > MAX_MELS:
+            raise ValueError(
+                f"logmel kernel supports n_fft/2+1 <= {MAX_BINS} and n_mels <= {MAX_MELS}; "
+                f"got n_bins={cfg.n_bins}, n_mels={cfg.n_mels}"
+            )
+        if B * C > MAX_ROWS:
+            raise ValueError(f"logmel kernel takes at most {MAX_ROWS} signal rows, got {B * C}")
+        frames = FRAMES_PER_CTA
+        while frames > 2 and logmel_smem_bytes(frames, cfg.hop_length, cfg.n_fft) > SMEM_LIMIT:
+            frames //= 2
+        if logmel_smem_bytes(frames, cfg.hop_length, cfg.n_fft) > SMEM_LIMIT:
+            raise ValueError(
+                f"logmel kernel: hop_length={cfg.hop_length} with n_fft={cfg.n_fft} needs more "
+                f"than {SMEM_LIMIT} bytes of shared memory for two frames a CTA"
+            )
+        return T, frames
+
+    def _constants(self, cfg: FeaturizerConfig, device: torch.device):
+        """The FFT plan (radices, twiddles, window) and the packed mel bands,
+        kept on ``device`` per config."""
         key = (cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, str(device))
         with self._lock:
             hit = self._consts.get(key)
-            if hit is not None:
-                return hit
-            bins_pad, mels_pad, chunk = (
-                lib.ssd_logmel_bins_pad(), lib.ssd_logmel_mels_pad(), lib.ssd_logmel_chunk()
-            )
-            if cfg.n_bins > bins_pad or cfg.n_mels > mels_pad:
-                raise ValueError(
-                    f"logmel kernel supports n_fft/2+1 <= {bins_pad} and n_mels <= "
-                    f"{mels_pad}; got n_bins={cfg.n_bins}, n_mels={cfg.n_mels}"
+            if hit is None:
+                radix = np.asarray(fft_radices(cfg.n_fft), np.int32)
+                lo, w = mel_bands(
+                    melmod.mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
                 )
-            n_fft_pad = -(-cfg.n_fft // chunk) * chunk
-            window = melmod.hann_window(cfg.n_fft, np.float64)[:, None]
-            cos_m, sin_m = melmod.dft_matrices(cfg.n_fft, np.float64)
-            dft = np.zeros((n_fft_pad, bins_pad, 2), np.float32)
-            dft[: cfg.n_fft, : cfg.n_bins, 0] = window * cos_m
-            dft[: cfg.n_fft, : cfg.n_bins, 1] = window * sin_m
-            mel = np.zeros((bins_pad, mels_pad), np.float32)
-            mel[: cfg.n_bins, : cfg.n_mels] = melmod.mel_filterbank(
-                cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax
-            ).T
-            hit = (torch.from_numpy(dft).to(device), torch.from_numpy(mel).to(device), n_fft_pad)
-            self._consts[key] = hit
+                arrays = (radix, fft_twiddles(cfg.n_fft), melmod.hann_window(cfg.n_fft), lo, w)
+                hit = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+                self._consts[key] = hit
             return hit
 
     def __call__(self, emg: torch.Tensor, cfg: FeaturizerConfig) -> torch.Tensor:
@@ -234,20 +335,14 @@ class LogmelKernel(CudaKernel):
         if emg.dim() != 3 or not emg.is_contiguous():
             raise ValueError(f"logmel kernel needs a contiguous (B, L, C) tensor, got {tuple(emg.shape)}")
         B, L, C = emg.shape
-        T = cfg.frame_count(L)
-        if T <= 0:
-            raise ValueError(f"padded length {L} shorter than n_fft={cfg.n_fft}")
-        if B * C > 65535:
-            raise ValueError(f"logmel kernel takes at most 65535 signal rows, got {B * C}")
-        lib = self.library.load()
-        dft, mel, n_fft_pad = self._constants(cfg, emg.device, lib)
-        # shared memory grows with hop; a request past the device's limit
-        # makes cudaFuncSetAttribute fail, which raises below
+        T, frames = self.geometry(cfg, B, L, C)
+        radix, tw, win, lo, w = self._constants(cfg, emg.device)
         out = torch.empty((B * C, T, cfg.n_mels), dtype=torch.float32, device=emg.device)
         self.launch(
             "ssd_logmel_launch", emg.device,
-            emg.data_ptr(), dft.data_ptr(), mel.data_ptr(), out.data_ptr(),
-            B, L, C, T, cfg.hop_length, n_fft_pad, cfg.n_mels,
+            emg.data_ptr(), radix.data_ptr(), tw.data_ptr(), win.data_ptr(), lo.data_ptr(),
+            w.data_ptr(), out.data_ptr(),
+            B, L, C, T, cfg.hop_length, cfg.n_fft, radix.numel(), cfg.n_mels, w.shape[1], frames,
         )
         return out.view(B, C, T, cfg.n_mels)
 

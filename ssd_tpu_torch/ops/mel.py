@@ -103,8 +103,8 @@ def dft_matrices(n_fft: int, dtype=np.float32) -> tuple[np.ndarray, np.ndarray]:
 
     A small real FFT as two dense products: ``X_re = frames @ C``,
     ``X_im = frames @ S`` with ``C[n,k] = cos(-2πnk/N)``,
-    ``S[n,k] = sin(-2πnk/N)``. Used by the CUDA log-mel kernel and by its
-    plain PyTorch version.
+    ``S[n,k] = sin(-2πnk/N)``. The arithmetic of the Pallas kernel, kept by
+    the log-mel kernel's plain PyTorch version (the CUDA kernel runs an FFT).
     """
     n_bins = 1 + n_fft // 2
     n = np.arange(n_fft, dtype=np.float64)[:, None]

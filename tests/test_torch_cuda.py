@@ -33,6 +33,9 @@ def cuda():
         (8, 12800, {}),
         (3, 2000, {}),  # ragged last frame block
         (2, 3000, {"n_fft": 64, "hop_length": 24, "n_mels": 8}),  # hop ∤ n_fft
+        (2, 4000, {"n_fft": 322}),  # 2·7·23: generic-radix passes
+        (2, 3001, {"n_fft": 321}),  # odd n_fft, 3·107: no Nyquist bin
+        (3, 2500, {"n_fft": 75, "hop_length": 20, "n_mels": 16}),  # odd, 3·5·5
     ],
 )
 def test_logmel_kernel_matches_plain(cuda, B, L, cfg_kw):
@@ -82,12 +85,17 @@ def _ctc_case(B, T, S, seed):
 
 
 def _assert_recursion_close(got, want):
+    """β: within rtol 1e-5 where the reference is finite (α is bit-equal)."""
     finite = want > -1e29
     assert torch.equal(got > -1e29, finite)
     torch.testing.assert_close(got[finite], want[finite], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("B,T,S", [(5, 640, 160), (32, 384, 128), (4, 1, 3), (4, 9, 1)])
+@pytest.mark.parametrize(
+    "B,T,S",
+    [(5, 640, 160), (32, 384, 128), (4, 1, 3), (4, 9, 1),
+     (4, 50, 16), (4, 70, 31)],  # S2 = 33, 63: a warp boundary among the last states
+)
 def test_ctc_kernels_match_plain(cuda, B, T, S):
     lp_ext, skip, ll, bfinal, skip_from = _ctc_case(B, T, S, seed=T)
     want_a = ctc.forward_alphas_plain(lp_ext, skip)
@@ -97,8 +105,22 @@ def test_ctc_kernels_match_plain(cuda, B, T, S):
     got_b = ctc.betas(lp_ext.to(cuda), ll.to(cuda), bfinal.to(cuda), skip_from.to(cuda))
     torch.cuda.synchronize()
     assert (ctc.CTC_ALPHA.launches, ctc.CTC_BETA.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_a.cpu(), ctc.forward_alphas_plain(lp_ext.to(cuda), skip.to(cuda)).cpu())
     _assert_recursion_close(got_a.cpu(), want_a)
     _assert_recursion_close(got_b.cpu(), want_b)
+
+
+# S2 = 2S + 1 states: one warp (shuffles only), 16 warps joined through the
+# shared-memory handoff, then each instance of J states a thread (S2 ≤ 512·J)
+# up to β's limit, S2 ≤ 14 528
+@pytest.mark.parametrize("S", [15, 255, 400, 700, 900, 1400, 1900, 2900, 4000, 5000, 7263])
+def test_ctc_alpha_kernel_bit_equal_at_every_width(cuda, S):
+    """Every width of the α kernel gives the plain recursion's bits on the
+    card; T = S + 8 steps reach the last state."""
+    lp_ext, skip, *_ = _ctc_case(4, S + 8, S, seed=S)
+    lp_ext, skip = lp_ext.to(cuda), skip.to(cuda)
+    got = ctc.CTC_ALPHA(lp_ext, skip.float())
+    assert torch.equal(got, ctc.forward_alphas_plain(lp_ext, skip))
 
 
 def test_ctc_wrappers_reject_bad_cuda_input(cuda):
@@ -113,6 +135,11 @@ def test_ctc_wrappers_reject_bad_cuda_input(cuda):
         ctc.CTC_ALPHA(lp, skip[:, :5])
     with pytest.raises(ValueError, match="non-empty"):
         ctc.CTC_ALPHA(lp[:0], skip)
+    wide = torch.zeros((1, 1, 14529), device=cuda), torch.zeros((1, 14529), device=cuda)
+    with pytest.raises(RuntimeError, match="ssd_ctc_alpha_launch failed"):  # past β's limit
+        ctc.CTC_ALPHA(*wide)
+    with pytest.raises(RuntimeError, match="ssd_ctc_beta_launch failed"):
+        ctc.CTC_BETA(*wide, wide[1], torch.ones((1,), dtype=torch.int32, device=cuda))
     with pytest.raises(TypeError):
         ctc.CTC_BETA(lp, skip, skip, lens.long())
     with pytest.raises(ValueError, match="CUDA"):
