@@ -15,7 +15,9 @@ failing loudly:
              the card's name and power limit, and PyTorch's TF32 settings
              (off for matmuls and cuDNN for the whole run: the parity phases
              need fp32; the attention kernels' own products are 3×TF32,
-             which keeps fp32 accuracy).
+             which keeps fp32 accuracy). Read ``configs/tpu_fast_plus.yaml``
+             through the port's YAML reader, the configuration of every
+             phase below.
 2. kernel  — the log-mel kernel (a shared-memory FFT) against its plain
              PyTorch version at the serving buckets (B ∈ {1, 8}, 8 channels,
              4 000–12 000 valid samples in a 12 800-sample bucket):
@@ -42,13 +44,15 @@ failing loudly:
              empty target, an impossible row and a row of repeated labels:
              α / β where finite within rtol 1e-5, per-sample loss rtol 1e-5,
              logits gradients atol 1e-5; values and logits gradients against
-             ``F.ctc_loss`` too; whether α is bit-equal to the plain recursion.
-             Kernel, plain and ``F.ctc_loss`` times (its forward with the
-             timing mode ``cuda_ms_mode`` chose); α must be ≥ 1.25× faster
-             than the shared-memory kernel's recorded times.
+             ``F.ctc_loss`` too; whether α is bit-equal to the plain recursion,
+             and β must be. Kernel, plain and ``F.ctc_loss`` times (its
+             forward with the timing mode ``cuda_ms_mode`` chose); α and β
+             must each be ≥ 1.25× faster than the shared-memory kernels'
+             recorded times.
 7. train   — a synthetic corpus (20 voiced utterances, cached features from
              the port's featurizer, WavLM-width teacher features, a JSONL
-             index, a JSON config inlining ``configs/tpu_fast_plus.yaml``)
+             index, ``configs/tpu_fast_plus.yaml`` with the corpus's data
+             paths as the run's JSON config)
              trained by ``train_from_config(..., device="cuda")`` for one
              epoch of 2 overfit batches, from cached features and from raw
              EMG; then resumed for epoch 2; then served. Launch counts are
@@ -69,14 +73,18 @@ failing loudly:
              (B = 8 / T' = 625, B = 5 / T' = 640, B = 32 / T' = 384; H 6,
              hd 48, C 288, K 15), random key lengths with one row of length
              1, with and without a dropout multiplier; padded keys' dk and
-             dv exactly 0 and two backward runs bit-identical; kernel, plain
-             and library times: SDPA pinned to its memory-efficient backend
-             (forward; its backward alone, from the raw aten op on one
-             untimed forward's output and log-sum-exp) and ``F.conv1d``.
-             Attention bounds at the 3×TF32 rate (3 × flops / 495 TFLOP/s)
-             beside the fp32 SIMT one, and each attention kernel must be
-             ≥ 1.25× faster than the previous SIMT kernels' recorded times
-             at the config and flagship shapes.
+             dv exactly 0 and two backward runs bit-identical (attention and
+             depthwise: dx, dw and db); kernel, plain and library times: SDPA
+             pinned to its memory-efficient backend (forward; its backward
+             alone, from the raw aten op on one untimed forward's output and
+             log-sum-exp) and ``F.conv1d``; the depthwise op's whole backward
+             (kernel and the sum of its partials) beside the earlier tree's
+             recorded time, which it must beat. Attention bounds at the
+             3×TF32 rate (3 × flops / 495 TFLOP/s) beside the fp32 SIMT one;
+             each attention kernel must be ≥ 1.25× faster than the previous
+             SIMT kernels' recorded times at the config and flagship shapes,
+             and the depthwise backward kernel no slower than the tile
+             kernel's at the config shape and ≥ 1.25× faster at the flagship.
 11. fused/pallas — the same model with ``attention_impl: fused`` and
              ``depthwise_impl: pallas`` through every main path: (a) served
              by the engine (B = 1 and 8, greedy and beam-50) and three
@@ -100,6 +108,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
+import importlib.util
 import json
 import re
 import shutil
@@ -137,20 +147,11 @@ from ssd_tpu_torch.utils.config import load_config
 SEED = 0
 CHANNELS = 8
 BUCKET = 12800  # largest serving bucket exercised: 5 × SAMPLE_BUCKET
-# configs/tpu_fast_plus.yaml:15-21 and :26-37, inlined (no yaml on the card)
-FEATURES = {"emg": {"sample_rate": 1000, "n_fft": 320, "hop_length": 10,
-                    "n_mels": 80, "normalize": "per_file"}}
-MODEL = {
-    "encoder": {"d_model": 288, "num_layers": 6, "num_heads": 6, "ffn_dim": 1152,
-                "depthwise_conv_kernel_size": 15, "dropout": 0.12,
-                "subsample_factor": 2, "input_dim": 640},
-    "projection_dim": 768,
-    "ctc_dropout": 0.12,
-}
+# the full-width configuration every phase runs, read through the port's own
+# YAML reader (it needs no pyyaml)
+CONFIG_PATH = Path(__file__).resolve().parent / "configs" / "tpu_fast_plus.yaml"
 # the other implementation of two ops, on the same parameters
 FUSED = {"attention_impl": "fused", "depthwise_impl": "pallas"}
-DECODING = {"type": "beam", "beam_width": 50, "alpha": 0.4, "beta": 0.0,
-            "beam_prune_logp": -10.0, "lm_path": None}
 
 FEAT_TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_featurizer.py::test_fused_matches_xla
 # card vs CPU log-probs, full fp32 on both (TF32 off): summation order only,
@@ -163,6 +164,17 @@ H100_BYTES_PER_S = 3.35e12
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+@functools.cache
+def shipped_config() -> dict:
+    """``configs/tpu_fast_plus.yaml`` through ``load_config``; callers copy
+    it before they change it."""
+    return load_config(CONFIG_PATH)
+
+
+def encoder_key(key: str):
+    return shipped_config()["model"]["encoder"][key]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -276,17 +288,28 @@ def phase_build() -> str:
         print(f"[build] {name}: {how} ({lib.library_path().name})")
         kernel = ""
         for line in lib.build_log.splitlines():
-            entry = re.search(r"Compiling entry function '\S*?\d([a-z][a-z_]*_kernel)(?:ILb([01])ELi(\d+)E)?",
+            entry = re.search(r"Compiling entry function '\S*?\d([a-z][a-z_]*_kernel)(I(?:L[bi]\d+E)+E)?",
                               line)
             if entry:
                 kernel = entry.group(1)
-                if entry.group(2):  # attention.cu's template arguments
-                    kernel += (f"<{'16' if entry.group(2) == '1' else '4'}-byte staging, "
-                               f"{entry.group(3)} k-steps>")
+                args = re.findall(r"L([bi])(\d+)E", entry.group(2) or "")
+                if kernel.startswith("attn_") and args:  # <16-byte staging, k-steps>
+                    kernel += (f"<{'16' if args[0][1] == '1' else '4'}-byte staging, "
+                               f"{args[1][1]} k-steps>")
+                elif args:  # ctc.cu's <J, β>, depthwise_conv.cu's <KMAX, 16-byte copies>
+                    kernel += "<" + ", ".join(v if t == "i" else ("true" if v == "1" else "false")
+                                              for t, v in args) + ">"
             if "registers" in line or "spill" in line:
                 print(f"[build] ptxas {name} {kernel}: {line.strip()}")
     card = card_line()
     print(f"[build] card: {card}")
+    cfg, enc = shipped_config(), shipped_config()["model"]["encoder"]
+    check("yaml" not in sys.modules, "reading the config imported pyyaml")
+    print(f"[config] {CONFIG_PATH.name} read by load_config without pyyaml (installed here: "
+          f"{importlib.util.find_spec('yaml') is not None}; imported: False): d_model {enc['d_model']}, "
+          f"{enc['num_layers']} blocks, {enc['num_heads']} heads, ffn {enc['ffn_dim']}, "
+          f"K {enc['depthwise_conv_kernel_size']}, input {enc['input_dim']}; optim lr "
+          f"{cfg['optim']['lr']!r}, batch {cfg['optim']['batch_size']}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[build] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -333,7 +356,7 @@ def logmel_work(cfg: feat.FeaturizerConfig, frames: int) -> tuple:
 
 
 def phase_kernel(rng: np.random.Generator) -> dict:
-    cfg = feat.FeaturizerConfig(**FEATURES["emg"])
+    cfg = feat.FeaturizerConfig(**shipped_config()["features"]["emg"])
     dev = torch.device("cuda")
     window = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
     mel_t = torch.from_numpy(np.ascontiguousarray(
@@ -392,8 +415,8 @@ def phase_kernel(rng: np.random.Generator) -> dict:
 
 
 def model_block(**enc) -> dict:
-    """``MODEL`` with encoder keys overridden."""
-    m = copy.deepcopy(MODEL)
+    """The config's model block with encoder keys overridden."""
+    m = copy.deepcopy(shipped_config()["model"])
     m["encoder"].update(enc)
     return m
 
@@ -404,9 +427,9 @@ def build_run_dir(run_dir: Path, **enc) -> Path:
     run_dir.mkdir(parents=True, exist_ok=True)
     vocab_path = run_dir / "vocab.json"
     default_vocab().to_json(vocab_path)
-    cfg = {"data": {"vocab": str(vocab_path)}, "features": FEATURES, "model": model_block(**enc),
-           "decoding": DECODING}
-    model = build_model(cfg, input_dim=MODEL["encoder"]["input_dim"], vocab_size=48)
+    cfg = {"data": {"vocab": str(vocab_path)}, "features": shipped_config()["features"],
+           "model": model_block(**enc), "decoding": shipped_config()["decoding"]}
+    model = build_model(cfg, input_dim=encoder_key("input_dim"), vocab_size=48)
     init_flax_style(model, torch.Generator().manual_seed(SEED))
     with torch.no_grad():
         # ×10 CTC head: peaked log-probs, so text comparisons are not decided
@@ -523,25 +546,6 @@ def phase_latency(engines: dict, rng: np.random.Generator) -> None:
 
 # ------------------------------------------------------- training phases
 
-# configs/tpu_fast_plus.yaml, inlined as JSON (no yaml on the card); the
-# data paths are filled in by make_corpus
-TRAIN_CONFIG = {
-    "data": {"train_splits": ["voiced_parallel_data"], "val_splits": ["voiced_parallel_data"],
-             "train_subsets": ["train"], "val_subsets": ["val"]},
-    "features": {**FEATURES, "teacher": {"model_name": "microsoft/wavlm-base-plus", "layer": 9,
-                                         "sample_rate": 16000, "dim": 768}},
-    "model": MODEL,
-    "loss": {"lambda_distill": 0.35, "lambda_ctc": 0.65, "distill_warmup_epochs": 2},
-    "optim": {"batch_size": 5, "grad_accum": 1, "lr": 3e-4, "weight_decay": 1e-2,
-              "max_epochs": 50, "clip_grad_norm": 5.0, "num_workers": 4, "prefetch_factor": 2,
-              "pin_memory": True, "scheduler": {"name": "warmup_hold", "warmup_steps": 800},
-              "early_stopping": {"patience": 5, "min_delta": 0.0}},
-    "augmentation": {"specaugment": {"time_masks": 2, "time_mask_width": 0.05, "freq_masks": 2,
-                                     "freq_mask_width": 8, "p": 0.3}},
-    "decoding": DECODING,
-    "logging": {"seed": 42, "run_name": "tpu_fast_plus", "log_interval": 10},
-    "parallel": {"data": "auto", "model": 1},
-}
 TEACHER_DIM = 768
 LAMBDAS = (0.65, 0.35)
 BLANK = 1  # default_vocab's blank id
@@ -557,10 +561,11 @@ CTC_GRAD_ATOL = 1e-5  # logits gradients, kernels vs plain
 TORCH_CTC_TOL = dict(rtol=1e-4, atol=1e-4)
 TORCH_CTC_GRAD_RTOL, TORCH_CTC_GRAD_ULPS = 1e-3, 8
 CTC_OPS_PER_STATE = 12  # per state and step: 10 flops + 2 transcendentals (the Pallas cost estimate)
-# the α kernel's times before its register-resident redesign (PERF.md §6,
-# H100 80GB HBM3 at 700 W): the kernel must beat each by ALPHA_GATE
+# the α and β kernels' times before their register-resident redesigns
+# (PERF.md §6, H100 80GB HBM3 at 700 W): each must beat its own by CTC_GATE
 SMEM_ALPHA_MS = {"config": 0.4429, "flagship": 0.2616}
-ALPHA_GATE = 1.25
+SMEM_BETA_MS = {"config": 0.4449, "flagship": 0.2621}
+CTC_GATE = 1.25
 TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, fp32 both, TF32 off
 TRAIN_GRAD_REL = 1e-3  # max abs err ≤ this × the tensor's max-abs gradient, or …
 TRAIN_GRAD_FLOOR = 1e-6  # … this: the attention key bias and the depthwise-conv bias
@@ -642,11 +647,14 @@ def phase_ctc(rng: np.random.Generator) -> dict:
         got_a, want_a = ctc.CTC_ALPHA(lp_ext, skipf), ctc.forward_alphas_plain(lp_ext, skip)
         a_err, a_ok = finite_close(got_a, want_a, CTC_REC_RTOL)
         a_equal = torch.equal(got_a, want_a)
-        b_err, b_ok = finite_close(ctc.CTC_BETA(lp_ext, skip_from_f, bfinal, ll32),
-                                   ctc.betas_plain(lp_ext, ll, bfinal, skip_from), CTC_REC_RTOL)
+        got_b, want_b = ctc.CTC_BETA(lp_ext, skip_from_f, bfinal, ll32), ctc.betas_plain(lp_ext, ll, bfinal, skip_from)
+        b_err, b_ok = finite_close(got_b, want_b, CTC_REC_RTOL)
         check(a_ok, f"α kernel vs plain at {label}: max abs err {a_err}")
         print(f"[ctc] {label}: α kernel bit-equal to the plain recursion on the card: {a_equal}")
         check(b_ok, f"β kernel vs plain at {label}: max abs err {b_err}")
+        check(torch.equal(got_b, want_b), f"β kernel not bit-equal to the plain recursion at {label}: "
+              f"max abs err {float((got_b - want_b).abs().max())}")
+        print(f"[ctc] {label}: β kernel bit-equal to the plain recursion on the card: True")
         loss, grad = loss_and_grad(logits, ll, tg, tl)
         with plain_recursions():
             loss_p, grad_p = loss_and_grad(logits, ll, tg, tl)
@@ -703,12 +711,13 @@ def phase_ctc(rng: np.random.Generator) -> dict:
             "port_fwd_bwd": cuda_ms(port_fwd_bwd, iters=5),
         }
         times[label] = t
-        limit = SMEM_ALPHA_MS[label] / ALPHA_GATE
-        print(f"[ctc] {label}: α {t['alpha']:.4f} ms, {t['alpha'] * 1e3 / T:.3f} µs a step, "
-              f"{SMEM_ALPHA_MS[label] / t['alpha']:.2f}x faster than the shared-memory kernel's "
-              f"{SMEM_ALPHA_MS[label]} ms (gate: ≥ {ALPHA_GATE}x, ≤ {limit:.4f} ms)")
-        check(t["alpha"] <= limit, f"α kernel at {label}: {t['alpha']:.4f} ms > {limit:.4f} ms, less "
-              f"than {ALPHA_GATE}x faster than the shared-memory kernel")
+        for name, sign, before in (("alpha", "α", SMEM_ALPHA_MS), ("beta", "β", SMEM_BETA_MS)):
+            limit = before[label] / CTC_GATE
+            print(f"[ctc] {label}: {sign} {t[name]:.4f} ms, {t[name] * 1e3 / T:.3f} µs a step, "
+                  f"{before[label] / t[name]:.2f}x faster than the shared-memory kernel's "
+                  f"{before[label]} ms (gate: ≥ {CTC_GATE}x, ≤ {limit:.4f} ms)")
+            check(t[name] <= limit, f"{sign} kernel at {label}: {t[name]:.4f} ms > {limit:.4f} ms, less "
+                  f"than {CTC_GATE}x faster than the shared-memory kernel")
         n = T * B * S2
         for name, err, extra in (("alpha", a_err, 4 * B * S2), ("beta", b_err, 8 * B * S2 + 4 * B)):
             nbytes = 4 * 2 * n + extra
@@ -737,10 +746,11 @@ def phase_ctc(rng: np.random.Generator) -> dict:
 
 def make_corpus(root: Path, rng: np.random.Generator) -> Path:
     """20 voiced utterances (16 train, 4 val) → features, teacher, JSONL
-    index, vocab and a JSON config; returns the config's path."""
+    index, vocab, and the shipped config with the corpus's data paths as the
+    run's JSON config; returns its path."""
     vocab_path = root / "vocab.json"
     default_vocab().to_json(vocab_path)
-    fcfg = feat.FeaturizerConfig(**FEATURES["emg"])
+    fcfg = feat.FeaturizerConfig(**shipped_config()["features"]["emg"])
     chars = list("abcdefghijklmnopqrstuvwxyz") + [" "] * 6 + list("',.?")
     rows = []
     for i in range(20):
@@ -763,7 +773,7 @@ def make_corpus(root: Path, rng: np.random.Generator) -> Path:
                          emg_path=str(raw_path), audio_path=None, transcript=text,
                          sentence_index=i, book="", has_audio=False, metadata_json="{}"))
     save_index(rows, root / "index.jsonl")
-    cfg = copy.deepcopy(TRAIN_CONFIG)
+    cfg = copy.deepcopy(shipped_config())
     cfg["data"].update(index=str(root / "index.jsonl"), features_root=str(root / "features"),
                        vocab=str(vocab_path))
     path = root / "config.json"
@@ -839,7 +849,7 @@ def train_batch(rng: np.random.Generator, B: int, frames: int, S: int) -> dict:
     """A cached-feature batch at the loader's bucketed shapes."""
     lengths = rng.integers(int(frames * 0.6), frames + 1, size=B)
     lengths[0] = frames
-    emg = rng.normal(size=(B, frames, MODEL["encoder"]["input_dim"])).astype(np.float32)
+    emg = rng.normal(size=(B, frames, encoder_key("input_dim"))).astype(np.float32)
     tok_len = rng.integers(S // 2, S + 1, size=B)
     tokens = np.zeros((B, S), np.int32)
     for i in range(B):
@@ -859,7 +869,7 @@ def model_cfg(dropout: float, **enc) -> dict:
 
 def phase_train_parity(rng: np.random.Generator, **enc) -> None:
     cfg = model_cfg(0.0, **enc)
-    cpu_model = build_model(cfg, input_dim=MODEL["encoder"]["input_dim"], vocab_size=48)
+    cpu_model = build_model(cfg, input_dim=encoder_key("input_dim"), vocab_size=48)
     init_flax_style(cpu_model, torch.Generator().manual_seed(SEED))
     gpu_model = copy.deepcopy(cpu_model).cuda()
     batch = train_batch(rng, 5, 1280, 160)
@@ -891,7 +901,7 @@ def phase_train_parity(rng: np.random.Generator, **enc) -> None:
           f"{TRAIN_GRAD_REL}); batch stats max abs err {stat_err:.3e} (atol {TRAIN_STAT_ATOL})")
 
     overfit = {"optim": {"lr": 1e-3, "weight_decay": 1e-2, "clip_grad_norm": 5.0}}
-    model = build_model(cfg, input_dim=MODEL["encoder"]["input_dim"], vocab_size=48)
+    model = build_model(cfg, input_dim=encoder_key("input_dim"), vocab_size=48)
     init_flax_style(model, torch.Generator().manual_seed(SEED))
     model.cuda()
     opt, _ = build_optimizer(overfit, model.parameters(), 20)
@@ -928,11 +938,11 @@ def phase_train_rate(rng: np.random.Generator, ctc_times: dict, kernel_times=Non
     fused/pallas configuration) also the four kernels' share of the step."""
     for label, (B, frames, S) in (("config", (5, 1280, 160)), ("flagship", (32, 768, 128))):
         torch.cuda.reset_peak_memory_stats()
-        model = build_model(model_cfg(MODEL["encoder"]["dropout"], **enc),
-                            input_dim=MODEL["encoder"]["input_dim"], vocab_size=48)
+        model = build_model(model_cfg(encoder_key("dropout"), **enc),
+                            input_dim=encoder_key("input_dim"), vocab_size=48)
         init_flax_style(model, torch.Generator().manual_seed(SEED))
         model.cuda()
-        opt, _ = build_optimizer(TRAIN_CONFIG, model.parameters(), 1000)
+        opt, _ = build_optimizer(shipped_config(), model.parameters(), 1000)
         batch = trainer.to_device(train_batch(rng, B, frames, S), torch.device("cuda"))
         gen = torch.Generator("cuda").manual_seed(SEED + 1)
 
@@ -966,7 +976,7 @@ def phase_train_rate(rng: np.random.Generator, ctc_times: dict, kernel_times=Non
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (this shape)")
         if kernel_times is not None:
             k = kernel_times[label]
-            L = MODEL["encoder"]["num_layers"]
+            L = encoder_key("num_layers")
             four = L * (k["attention_fwd"] + k["attention_bwd"] + k["depthwise_fwd"] + k["depthwise_bwd"])
             print(f"[rate] {name}: attention fwd {k['attention_fwd']:.4f} + bwd {k['attention_bwd']:.4f} "
                   f"+ depthwise fwd {k['depthwise_fwd']:.4f} + bwd {k['depthwise_bwd']:.4f} ms, × {L} "
@@ -995,6 +1005,14 @@ SDPA_BACKEND = SDPBackend.EFFICIENT_ATTENTION  # fp32 SDPA on the card: 3xTF32 t
 SIMT_ATTN_MS = {"config": {"attention_fwd": 0.2168, "attention_bwd": 0.8317},
                "flagship": {"attention_fwd": 0.3815, "attention_bwd": 1.4177}}
 ATTN_GATE = 1.25
+# the depthwise backward before its strip redesign (PERF.md §6, H100 80GB
+# HBM3 at 700 W): the kernel alone (then without db), which the strip kernel
+# must match at the config shape and beat by 1.25x at the flagship, and the
+# op's whole backward (kernel, the partials' sum, g.sum for db), which it
+# must beat at both
+TILE_DW_BWD_MS = {"config": 0.0121, "flagship": 0.0392}
+DW_BWD_GATE = {"config": 1.0, "flagship": 1.25}
+TILE_DW_BWD_OP_MS = {"config": 0.0297, "flagship": 0.0753}
 
 
 def sdpa_bias(mask: torch.Tensor, heads: int) -> torch.Tensor:
@@ -1021,7 +1039,7 @@ def attention_case(rng: np.random.Generator, B: int, T: int):
     lengths = rng.integers(T // 2, T + 1, size=B)
     lengths[0], lengths[-1] = T, 1
     mask = torch.from_numpy((np.arange(T)[None, :] < lengths[:, None]).astype(np.int32)).to(dev)
-    rate = MODEL["encoder"]["dropout"]
+    rate = encoder_key("dropout")
     mult = torch.from_numpy(((rng.random((T, T)) >= rate) / (1 - rate)).astype(np.float32)).to(dev)
     return q, k, v, g, mask, mult
 
@@ -1115,41 +1133,78 @@ def phase_attention_depthwise(rng: np.random.Generator) -> dict:
         w = torch.from_numpy(rng.normal(size=(TAPS, CHANNELS_DW)).astype(np.float32) / 4).to(dev)
         bias = torch.from_numpy(rng.normal(size=(CHANNELS_DW,)).astype(np.float32)).to(dev)
         y = dwc.DW_FWD(x, w, bias)
-        dx, dwp = dwc.DW_BWD(x, w, gx)
+        dx, part = dwc.DW_BWD(x, w, gx)
+        dx_again, part_again = dwc.DW_BWD(x, w, gx)
         want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, gx)
         want_y = dwc.depthwise_conv1d_plain(x, w, bias)
+        # the op's whole backward: the kernel, then one sum of its partials
+        xr, wr, br = (v.clone().requires_grad_(True) for v in (x, w, bias))
+        y_op = dwc.depthwise_conv1d(xr, wr, br)
+        op_grads = torch.autograd.grad(y_op, (xr, wr, br), gx, retain_graph=True)
         torch.cuda.synchronize()
-        dw, want_dw = dwp.sum(dim=(0, 1)), want_dwp.sum(dim=0)
-        dw_atol = DW_SUM_REL * float(want_dw.abs().max())
+        sums = part.sum(dim=(0, 1))
+        dw, db = sums[:TAPS], sums[TAPS]
+        want_dw, want_db = want_dwp.sum(dim=0), gx.sum(dim=(0, 1))
         check(close(y, want_y, **DW_TOL), f"depthwise forward {label}: {max_err([y], [want_y])}")
         check(close(dx, want_dx, **DW_TOL), f"depthwise dx {label}: {max_err([dx], [want_dx])}")
-        check(close(dw, want_dw, atol=dw_atol, rtol=0), f"depthwise dw {label}: {max_err([dw], [want_dw])}")
+        for name, got, want in (("dw", dw, want_dw), ("db", db, want_db)):
+            atol = DW_SUM_REL * float(want.abs().max())
+            check(close(got, want, atol=atol, rtol=0),
+                  f"depthwise {name} {label}: max abs err {max_err([got], [want])} > {atol}")
+        check(torch.equal(dx, dx_again) and torch.equal(part, part_again),
+              f"depthwise {label}: two backward runs differ")
+        check(all(torch.equal(a, b) for a, b in zip(op_grads, (dx, dw, db))),
+              f"depthwise {label}: the op's gradients are not the kernel's")
+        strips = part.shape[1]
         pad = TAPS // 2
         xc = x.transpose(1, 2).contiguous()
         wc = w.t().contiguous()[:, None, :]
-        xcg, wcg = xc.clone().requires_grad_(True), wc.clone().requires_grad_(True)
+        xcg, wcg, bcg = (v.clone().requires_grad_(True) for v in (xc, wc, bias))
         gc = gx.transpose(1, 2).contiguous()
 
         def conv_fwd_bwd():
-            o = F.conv1d(xcg, wcg, bias, padding=pad, groups=CHANNELS_DW)
-            torch.autograd.grad(o, (xcg, wcg), gc)
+            o = F.conv1d(xcg, wcg, bcg, padding=pad, groups=CHANNELS_DW)
+            torch.autograd.grad(o, (xcg, wcg, bcg), gc)
 
         t.update({
             "depthwise_fwd": cuda_ms(lambda: dwc.DW_FWD(x, w, bias)),
             "depthwise_bwd": cuda_ms(lambda: dwc.DW_BWD(x, w, gx)),
+            "depthwise_bwd_op": cuda_ms(
+                lambda: torch.autograd.grad(y_op, (xr, wr, br), gx, retain_graph=True)),
             "depthwise_fwd_plain": cuda_ms(lambda: dwc.depthwise_conv1d_plain(x, w, bias), iters=10),
-            "depthwise_bwd_plain": cuda_ms(lambda: dwc.depthwise_conv1d_bwd_plain(x, w, gx), iters=10),
+            "depthwise_bwd_plain": cuda_ms(
+                lambda: (dwc.depthwise_conv1d_bwd_plain(x, w, gx), gx.sum(dim=(0, 1))), iters=10),
             "depthwise_fwd_library": cuda_ms(lambda: F.conv1d(xc, wc, bias, padding=pad, groups=CHANNELS_DW)),
             "depthwise_bwd_library": cuda_ms(conv_fwd_bwd),
         })
         nx = B * T * CHANNELS_DW
         b_dwf = bound(2 * nx * TAPS, 4 * (2 * nx + TAPS * CHANNELS_DW + CHANNELS_DW))
-        # the function's bytes: x and g read, dx written, w read, dw as (B, K, C)
-        # partials as the Pallas kernel writes them; the port's per-tile
-        # partials are its tiling's cost, not the bound's
-        b_dwb = bound(4 * nx * TAPS, 4 * (3 * nx + TAPS * CHANNELS_DW + B * TAPS * CHANNELS_DW))
+        # the function's bytes: x and g read, dx written, w read, dw and db as
+        # (B, K + 1, C) per-batch partials — the Pallas kernel's (B, K, C) dw
+        # partials and db; the port's per-strip partials are its tiling's
+        # cost, not the bound's
+        b_dwb = bound(4 * nx * TAPS + nx,
+                      4 * (3 * nx + TAPS * CHANNELS_DW + B * (TAPS + 1) * CHANNELS_DW))
+        per = -(-(-(-T // 64)) // strips)  # 64-row tiles a strip, the last strip may have fewer
+        print(f"[kernels] {label} B={B} T'={T} depthwise backward: {strips} strip(s) of ≤ {per} "
+              f"tiles a batch row, {-(-CHANNELS_DW // 32) * strips * B} CTAs; "
+              f"the op's whole backward (kernel + one sum of the (B, strips, K + 1, C) partials, "
+              f"through autograd) {t['depthwise_bwd_op']:.4f} ms")
+        if label in TILE_DW_BWD_MS:
+            limit = TILE_DW_BWD_MS[label] / DW_BWD_GATE[label]
+            op_before = TILE_DW_BWD_OP_MS[label]
+            print(f"[kernels] {label} depthwise_bwd: {t['depthwise_bwd']:.4f} ms against the tile "
+                  f"kernel's {TILE_DW_BWD_MS[label]} ms: {TILE_DW_BWD_MS[label] / t['depthwise_bwd']:.2f}x "
+                  f"faster (gate: ≥ {DW_BWD_GATE[label]}x, ≤ {limit:.4f} ms); the op's backward "
+                  f"{t['depthwise_bwd_op']:.4f} ms against the tile kernel's op {op_before} ms "
+                  f"({op_before / t['depthwise_bwd_op']:.2f}x; gate: faster)")
+            check(t["depthwise_bwd"] <= limit, f"depthwise_bwd at {label}: {t['depthwise_bwd']:.4f} ms "
+                  f"> {limit:.4f} ms")
+            check(t["depthwise_bwd_op"] < op_before, f"the depthwise op's backward at {label}: "
+                  f"{t['depthwise_bwd_op']:.4f} ms, not faster than the tile kernel's {op_before} ms")
         times[label] = t
-        dw_err = (max_err([y], [want_y]), max(max_err([dx], [want_dx]), max_err([dw], [want_dw])))
+        dw_err = (max_err([y], [want_y]),
+                  max(max_err([dx], [want_dx]), max_err([dw], [want_dw]), max_err([db], [want_db])))
         rows = (("attention_fwd", errs["no mult" if m is None else "mult"][0], b_fwd),
                 ("attention_bwd", errs["no mult" if m is None else "mult"][1], b_bwd),
                 ("depthwise_fwd", dw_err[0], b_dwf), ("depthwise_bwd", dw_err[1], b_dwb))
@@ -1173,7 +1228,8 @@ def phase_attention_depthwise(rng: np.random.Generator) -> dict:
         print(f"[kernels] {label}: attention errors (forward, gradients) {errs}; library = SDPA "
               f"({SDPA_BACKEND.name}) with the additive key mask: its forward, and its backward alone "
               f"beside the backward kernel; F.conv1d(groups=C) on (B, C, T) (forward; forward + "
-              f"backward); timed only")
+              f"backward with the bias's gradient); timed only; the depthwise backward's plain time "
+              f"includes db's g.sum")
     return {"entries": entries, "times": times}
 
 
@@ -1184,7 +1240,7 @@ def phase_fused_serving(run_dir: Path, default_ckpt: Path, rng: np.random.Genera
     check(all(torch.equal(a, b) for a, b in zip(load_checkpoint(ckpt)["state_dict"].values(),
                                                  load_checkpoint(default_ckpt)["state_dict"].values())),
           "the fused/pallas checkpoint's weights differ from the default one's")
-    L = MODEL["encoder"]["num_layers"]
+    L = encoder_key("num_layers")
     engines, batches, launches = phase_main_path(
         ckpt, rng, sizes=(1, 8), per_call={"logmel": 1, "attention_fwd": L, "depthwise_fwd": L})
     phase_parity(ckpt, engines, batches)
@@ -1209,7 +1265,7 @@ def phase_fused_train(root: Path, rng: np.random.Generator) -> dict:
     cfg = load_config(root / "config.json")
     cfg["model"]["encoder"].update(FUSED)
     cfg["optim"]["max_epochs"] = 1
-    L = MODEL["encoder"]["num_layers"]
+    L = encoder_key("num_layers")
     t0 = time.perf_counter()
     reset_counts()
     summary = trainer.train_from_config(cfg, root / "run_fused", overfit_batches=2, device="cuda")

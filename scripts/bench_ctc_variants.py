@@ -1,19 +1,19 @@
 #!/usr/bin/env python3
-"""Time the CUDA CTC α kernel at each CTA width (warps a batch row).
+"""Time the CUDA CTC α and β kernels at each CTA width (warps a batch row).
 
     python3 scripts/bench_ctc_variants.py [--rounds 3]
 
 A width is ``ssd_tpu_torch/csrc/ctc.cu`` with the warps a row that
-``alpha_shape`` picks replaced by a fixed count (1 warp: shuffles only, no
-barrier; more: the shared-memory handoff at warp boundaries, and
-⌈S2/(32·warps)⌉ states a thread), a text substitution written to
-``ssd_tpu_torch/_build/variants/`` and built with the package's own nvcc
-flags, all sources at once; "committed" is the source as it stands
-(⌈S2/32⌉ warps, one state a thread). Each is held bit-equal to the plain
-recursion on the card and timed with CUDA events (mean of 50 warm launches
-queued behind a device spin) at the main path's shapes — B = 5, T' = 640,
-S = 160 (S2 = 321) and B = 32, T' = 384, S = 128 (S2 = 257) — beside the
-β kernel; rounds alternate the order. Needs a card.
+``ctc_shape`` picks for both directions replaced by a fixed count (1 warp:
+shuffles only, no barrier; more: the shared-memory handoff at warp
+boundaries, and ⌈S2/(32·warps)⌉ states a thread), a text substitution
+written to ``ssd_tpu_torch/_build/variants/`` and built with the package's
+own nvcc flags, all sources at once; "committed" is the source as it stands
+(⌈S2/32⌉ warps, one state a thread). Each α and β is held bit-equal to its
+plain recursion on the card and timed with CUDA events (mean of 50 warm
+launches queued behind a device spin) at the main path's shapes — B = 5,
+T' = 640, S = 160 (S2 = 321) and B = 32, T' = 384, S = 128 (S2 = 257), with
+random row lengths; rounds alternate the order. Needs a card.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from ssd_tpu_torch.ops import ctc_loss as ctc  # noqa: E402
 from ssd_tpu_torch.utils.cuda_build import BUILD_DIR, CSRC_DIR  # noqa: E402
 
-_WARPS = "const int warps = min((S2 + 31) / 32, kMaxAlphaWarps);"
+_WARPS = "const int warps = min((S2 + 31) / 32, kMaxWarps);"
 WARPS = (1, 2, 4, 8, 16)
 SHAPES = {"config": (5, 640, 160), "flagship": (32, 384, 128)}
 
@@ -57,7 +57,7 @@ def cuda_ms(fn, iters: int = 50) -> float:
 def library(warps):
     """The CTC library built from ctc.cu as it stands (``warps`` None) or
     with ``warps`` warps a row."""
-    lib = copy.copy(ctc.CTC_ALPHA.library)
+    lib = copy.copy(ctc.CTC_ALPHA.library)  # shared by α and β
     if warps is not None:
         src = (CSRC_DIR / "ctc.cu").read_text()
         if _WARPS not in src:
@@ -77,9 +77,10 @@ def case(B: int, T: int, S: int, seed: int):
     ext, skip = ctc._topology(tg, 1)
     lp_ext = ctc._emissions(lp, ext).cuda()
     tl = torch.from_numpy(rng.integers(S // 2, S + 1, size=B).astype(np.int32))
-    ll = torch.full((B,), T, dtype=torch.int32)
+    ll = torch.from_numpy(rng.integers(T // 2, T + 1, size=B).astype(np.int32))
+    ll[0] = T
     bfinal = ctc._final_states(tl, ext.shape[1]).cuda()
-    skip_from = torch.nn.functional.pad(skip[:, 2:], (0, 2), value=False).float().cuda()
+    skip_from = torch.nn.functional.pad(skip[:, 2:], (0, 2), value=False).cuda()
     return lp_ext, skip.cuda(), bfinal, skip_from, ll.cuda()
 
 
@@ -90,31 +91,34 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_ctc_variants: no CUDA device visible", file=sys.stderr)
         return 2
-    libs = {"alpha_committed": library(None), **{f"alpha_w{w}": library(w) for w in WARPS}}
+    libs = {"committed": library(None), **{f"w{w}": library(w) for w in WARPS}}
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.load(), libs.values()))
     kernels = {}
     for name, lib in libs.items():
-        kernels[name] = ctc.CTCAlphaKernel()
-        kernels[name].library = lib
+        for direction, cls in (("alpha", ctc.CTCAlphaKernel), ("beta", ctc.CTCBetaKernel)):
+            kernels[f"{direction}_{name}"] = k = cls()
+            k.library = lib
     cases = {label: case(*shape, seed=i) for i, (label, shape) in enumerate(SHAPES.items())}
-    for label, (lp_ext, skip, *_) in cases.items():
-        want = ctc.forward_alphas_plain(lp_ext, skip)
+    calls = {}
+    for label, (lp_ext, skip, bfinal, skip_from, ll) in cases.items():
+        want = {"alpha": ctc.forward_alphas_plain(lp_ext, skip),
+                "beta": ctc.betas_plain(lp_ext, ll, bfinal, skip_from)}
+        inputs = {"alpha": (lp_ext, skip.float()), "beta": (lp_ext, skip_from.float(), bfinal, ll)}
         for name, k in kernels.items():
-            if not torch.equal(k(lp_ext, skip.float()), want):
+            direction = name.split("_")[0]
+            calls[name, label] = (k, inputs[direction])
+            if not torch.equal(k(*inputs[direction]), want[direction]):
                 raise SystemExit(f"{name} at {label}: not bit-equal to the plain recursion")
-    print(f"every width bit-equal to the plain recursion at {list(SHAPES)}")
-    times = {(n, label): [] for n in [*kernels, "beta"] for label in cases}
+    print(f"every width of α and β bit-equal to the plain recursion at {list(SHAPES)}")
+    times = {key: [] for key in calls}
     for r in range(args.rounds):
-        for name in (list(kernels) if r % 2 == 0 else list(kernels)[::-1]):
-            for label, (lp_ext, skip, *_) in cases.items():
-                skipf = skip.float()
-                times[name, label].append(cuda_ms(lambda: kernels[name](lp_ext, skipf)))
-        for label, (lp_ext, _, bfinal, skip_from, ll) in cases.items():
-            times["beta", label].append(cuda_ms(lambda: ctc.CTC_BETA(lp_ext, skip_from, bfinal, ll)))
+        for key in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            k, a = calls[key]
+            times[key].append(cuda_ms(lambda: k(*a)))
     for (name, label), t in times.items():
         T = SHAPES[label][1]
-        print(f"{name:10s} {label:8s} B={SHAPES[label][0]} T'={T}: median {np.median(t):.4f} ms "
+        print(f"{name:16s} {label:8s} B={SHAPES[label][0]} T'={T}: median {np.median(t):.4f} ms "
               f"({np.median(t) * 1e3 / T:.3f} µs a step) over {len(t)} rounds "
               f"({', '.join(f'{v:.4f}' for v in t)})")
     return 0

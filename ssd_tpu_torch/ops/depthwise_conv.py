@@ -8,8 +8,9 @@ stands in for would emit T − 1 frames).
 
 :func:`depthwise_conv1d` is a ``torch.autograd.Function`` mirroring the JAX
 custom VJP: dx is the flipped stencil over the incoming gradient, dw the
-per-tile partials summed over batch and tiles outside the kernel, db the
-gradient summed over (batch, time). Each direction dispatches on the device
+kernel's partials summed outside it, db the gradient summed over (batch,
+time) — on the card a row of the backward kernel's partials, on the CPU
+``g.sum``. Each direction dispatches on the device
 of its input: a CUDA tensor goes to the hand-written kernels of
 ``csrc/depthwise_conv.cu`` (:data:`DW_FWD`, :data:`DW_BWD`), a CPU tensor to
 the plain versions :func:`depthwise_conv1d_plain` /
@@ -76,15 +77,15 @@ def depthwise_conv1d_bwd_plain(
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-TIME_TILE = 64  # time rows per CTA, kTile in csrc/depthwise_conv.cu
-MAX_KERNEL_SIZE = 31  # the largest K the kernels unroll, kMaxK there
+MAX_KERNEL_SIZE = 31  # the largest K the kernels unroll, kMaxK in csrc/depthwise_conv.cu
 
 _DW_LIBRARY = CudaLibrary(
     "ssd_depthwise",
     "depthwise_conv.cu",
     {
         "ssd_dw_fwd_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        "ssd_dw_bwd_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "ssd_dw_bwd_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "ssd_dw_bwd_strips": ([_I, _I, _I, _I], _I),
     },
     error_string="ssd_dw_error_string",
 )
@@ -127,18 +128,22 @@ class DepthwiseFwdKernel(_DepthwiseKernel):
 
 class DepthwiseBwdKernel(_DepthwiseKernel):
     """Backward of ``csrc/depthwise_conv.cu`` (replaces ``_bwd_kernel``):
-    x, w and the output gradient g → dx (B, T, C) and the dw partials
-    (B, ⌈T/64⌉, K, C), one row per (batch row, 64-row time tile)."""
+    x, w and the output gradient g → dx (B, T, C) and the partials
+    (B, strips, K + 1, C), one per (batch row, strip of 64-row time tiles):
+    rows 0 … K − 1 the dw partials ``Σ_t g[t] · x[t + j − pad]``, row K the
+    db partial ``Σ_t g[t]``. The kernel picks the strip count for the
+    card's SM count."""
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
         B, T, C, K = self._shapes(x, w)
         check_cuda_tensor("g", g, (B, T, C), device=x.device)
-        tiles = -(-T // TIME_TILE)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        strips = self.library.load().ssd_dw_bwd_strips(B, T, C, sms)
         dx = torch.empty_like(x)
-        dwp = torch.empty((B, tiles, K, C), dtype=torch.float32, device=x.device)
+        part = torch.empty((B, strips, K + 1, C), dtype=torch.float32, device=x.device)
         self.launch("ssd_dw_bwd_launch", x.device, x.data_ptr(), w.data_ptr(), g.data_ptr(),
-                     dx.data_ptr(), dwp.data_ptr(), B, T, C, K)
-        return dx, dwp
+                     dx.data_ptr(), part.data_ptr(), B, T, C, K, strips)
+        return dx, part
 
 
 DW_FWD = DepthwiseFwdKernel()
@@ -160,11 +165,12 @@ class _DepthwiseConv1d(torch.autograd.Function):
         x, w = ctx.saved_tensors
         if x.device.type == "cpu":
             dx, dwp = depthwise_conv1d_bwd_plain(x, w, g)
+            dw, db = dwp.sum(dim=0), g.to(torch.float32).sum(dim=(0, 1))
         else:
             # autograd may hand over any layout; the kernel takes (B, T, C) rows
-            dx, dwp = DW_BWD(x, w, g.contiguous())
-        dw = dwp.reshape(-1, *w.shape).sum(dim=0)
-        db = g.to(torch.float32).sum(dim=(0, 1))
+            dx, part = DW_BWD(x, w, g.contiguous())
+            sums = part.sum(dim=(0, 1))  # (K + 1, C): dw's K rows, then db
+            dw, db = sums[:-1], sums[-1]
         return dx, dw.to(w.dtype), db
 
 

@@ -76,6 +76,8 @@ class InferenceEngine:
         blank_bias: float = 0.0,
         token_top_k: Optional[int] = None,
         lm_path: Optional[Path] = None,
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
         featurizer_cfg: Optional[FeaturizerConfig] = None,
         data_parallel: bool = False,
         quantize: Optional[str] = None,
@@ -106,6 +108,11 @@ class InferenceEngine:
         self.decoder = decoder
         self.beam_width = beam_width
         self.blank_bias = blank_bias
+        # LM fusion weights, kept for the LM-fused beam search (ROADMAP.md
+        # queue 1 item 7); without an LM they change nothing. Constructor
+        # arg > config decoding block > 0.5 / 0.0, as the JAX engine.
+        self.alpha = float(alpha if alpha is not None else decoding_cfg.get("alpha", 0.5))
+        self.beta = float(beta if beta is not None else decoding_cfg.get("beta", 0.0))
         # constructor arg > config decoding block > default 16
         if token_top_k is None:
             token_top_k = decoding_cfg.get("token_top_k", 16)

@@ -3,6 +3,13 @@
 
   python -m ssd_tpu_torch.serving.server --checkpoint results/checkpoints/run/best \
       [--port 8776] [--decoder beam] [--max-batch 8] [--max-wait-ms 10] [--device cuda]
+      [--alpha A] [--beta B] [--compile-cache DIR]
+
+Every flag of the JAX server parses. ``--alpha`` / ``--beta`` reach the
+engine (CLI > the checkpoint's ``decoding`` block > 0.5 / 0.0) for LM
+fusion, which is not ported yet; ``--compile-cache`` has no PyTorch
+counterpart (the CUDA kernels are cached in ``ssd_tpu_torch/_build/`` by
+source hash) and is logged as unused.
 
 Endpoints (same JSON and base64-npy contract as the JAX server):
   POST /transcribe     body: {"emg": <base64 of a float32 .npy (samples, C)>}
@@ -201,16 +208,22 @@ def serve(
     warmup: bool = True,
     warmup_grid: bool = False,
     lm_path: Path | None = None,
+    alpha: float | None = None,
+    beta: float | None = None,
     data_parallel: bool = False,
     quantize: str | None = None,
+    compile_cache: Path | None = None,
     device: str = "cuda",
     host: str = "0.0.0.0",
 ) -> ThreadingHTTPServer:
     """Load the checkpoint, warm up, and return the (not yet serving)
     HTTP server; ``server.batcher`` is its micro-batcher."""
+    if compile_cache is not None:
+        logger.info("--compile-cache %s is unused: the CUDA kernels are cached in "
+                    "ssd_tpu_torch/_build/ by source hash", compile_cache)
     engine = InferenceEngine.from_checkpoint(
         checkpoint, decoder=decoder, beam_width=beam_width, lm_path=lm_path,
-        data_parallel=data_parallel, quantize=quantize, device=device,
+        alpha=alpha, beta=beta, data_parallel=data_parallel, quantize=quantize, device=device,
     )
     if warmup:
         logger.info("Warming up every batch bucket…")
@@ -222,10 +235,8 @@ def serve(
     return server
 
 
-def main() -> None:
-    from ssd_tpu_torch.utils.config import setup_cli_logging
-
-    setup_cli_logging()
+def build_parser() -> argparse.ArgumentParser:
+    """The server's flags: the JAX server's, plus ``--device``."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint", type=Path, required=True)
     p.add_argument("--port", type=int, default=8776)
@@ -237,12 +248,25 @@ def main() -> None:
     p.add_argument("--warmup-grid", action="store_true",
                    help="Warm up every (batch × length) bucket at startup.")
     p.add_argument("--lm-path", type=Path, help="ARPA LM for fusion (beam only; not ported yet)")
+    # None → the checkpoint config's decoding block, then 0.5 / 0.0
+    p.add_argument("--alpha", type=float, default=None, help="LM weight (LM fusion only).")
+    p.add_argument("--beta", type=float, default=None, help="Word bonus (LM fusion only).")
     p.add_argument("--data-parallel", action="store_true", help="Not ported yet.")
+    p.add_argument("--compile-cache", type=Path, default=None,
+                   help="Accepted for the JAX server's launch lines and unused: the CUDA "
+                   "kernels are cached in ssd_tpu_torch/_build/ by source hash.")
     p.add_argument("--quantize", choices=["none", "int8", "int8_prequant"], default=None,
                    help="Only 'none' is ported yet.")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu.")
-    args = p.parse_args()
+    return p
+
+
+def main() -> None:
+    from ssd_tpu_torch.utils.config import setup_cli_logging
+
+    setup_cli_logging()
+    args = build_parser().parse_args()
     server = serve(
         args.checkpoint,
         port=args.port,
@@ -253,8 +277,11 @@ def main() -> None:
         warmup=not args.no_warmup,
         warmup_grid=args.warmup_grid,
         lm_path=args.lm_path,
+        alpha=args.alpha,
+        beta=args.beta,
         data_parallel=args.data_parallel,
         quantize=args.quantize,
+        compile_cache=args.compile_cache,
         device=args.device,
     )
     try:

@@ -1,9 +1,10 @@
 """Config loading + CLI logging set-up (the port's own copy of the parts of
 ``ssd_tpu/utils/config.py`` it uses).
 
-A ``.json`` config is read with :mod:`json`, so the CLIs run where
-``pyyaml`` is not installed; anything else is read as YAML, with ``yaml``
-imported inside :func:`load_config` only.
+A ``.json`` config is read with :mod:`json`; anything else is read as YAML
+by the port's own reader of the subset the shipped configs use
+(:mod:`ssd_tpu_torch.utils.yaml_subset`), so the CLIs read the shipped YAML
+configs where ``pyyaml`` is not installed.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import json
 import logging
 from pathlib import Path
 from typing import Any, Dict
+
+from ssd_tpu_torch.utils.yaml_subset import read_yaml
 
 
 def setup_cli_logging() -> None:
@@ -22,11 +25,9 @@ def setup_cli_logging() -> None:
 
 
 def load_config(path: Path | str) -> Dict[str, Any]:
-    """Read a JSON (``.json``) or YAML config file."""
+    """Read a JSON (``.json``) or YAML config file; YAML outside the subset
+    raises ``ValueError`` naming the file and line."""
     path = Path(path)
     if path.suffix.lower() == ".json":
         return json.loads(path.read_text())
-    import yaml
-
-    with path.open("r") as f:
-        return yaml.safe_load(f)
+    return read_yaml(path.read_text(), str(path))

@@ -85,7 +85,9 @@ def _ctc_case(B, T, S, seed):
 
 
 def _assert_recursion_close(got, want):
-    """β: within rtol 1e-5 where the reference is finite (α is bit-equal)."""
+    """Against the CPU recursion: within rtol 1e-5 where it is finite (the
+    card's expf / log1pf may differ from the CPU's in the last bit); against
+    the same recursion on the card both kernels are bit-equal."""
     finite = want > -1e29
     assert torch.equal(got > -1e29, finite)
     torch.testing.assert_close(got[finite], want[finite], rtol=1e-5, atol=1e-5)
@@ -106,21 +108,31 @@ def test_ctc_kernels_match_plain(cuda, B, T, S):
     torch.cuda.synchronize()
     assert (ctc.CTC_ALPHA.launches, ctc.CTC_BETA.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got_a.cpu(), ctc.forward_alphas_plain(lp_ext.to(cuda), skip.to(cuda)).cpu())
+    assert torch.equal(got_b.cpu(), ctc.betas_plain(
+        lp_ext.to(cuda), ll.to(cuda), bfinal.to(cuda), skip_from.to(cuda)).cpu())
     _assert_recursion_close(got_a.cpu(), want_a)
     _assert_recursion_close(got_b.cpu(), want_b)
 
 
-# S2 = 2S + 1 states: one warp (shuffles only), 16 warps joined through the
-# shared-memory handoff, then each instance of J states a thread (S2 ≤ 512·J)
-# up to β's limit, S2 ≤ 14 528
-@pytest.mark.parametrize("S", [15, 255, 400, 700, 900, 1400, 1900, 2900, 4000, 5000, 7263])
-def test_ctc_alpha_kernel_bit_equal_at_every_width(cuda, S):
-    """Every width of the α kernel gives the plain recursion's bits on the
-    card; T = S + 8 steps reach the last state."""
-    lp_ext, skip, *_ = _ctc_case(4, S + 8, S, seed=S)
-    lp_ext, skip = lp_ext.to(cuda), skip.to(cuda)
-    got = ctc.CTC_ALPHA(lp_ext, skip.float())
-    assert torch.equal(got, ctc.forward_alphas_plain(lp_ext, skip))
+# S2 = 2S + 1 states: one warp (shuffles only), a warp boundary among the
+# last states (S2 = 33, 63), 16 warps joined through the shared-memory
+# handoff, then each instance of J states a thread (S2 ≤ 512·J) up to the
+# limit both directions take, S2 ≤ 14 528
+@pytest.mark.parametrize("S", [15, 16, 31, 255, 400, 700, 900, 1400, 1900, 2900, 4000, 5000, 7263])
+@pytest.mark.parametrize("direction", ["alpha", "beta"])
+def test_ctc_kernel_bit_equal_at_every_width(cuda, direction, S):
+    """Every width of the α and β kernels gives the plain recursion's bits
+    on the card; T = S + 8 steps reach the last state, and one row of
+    length T starts β from β_final."""
+    lp_ext, skip, ll, bfinal, skip_from = _ctc_case(4, S + 8, S, seed=S)
+    ll[0] = S + 8
+    lp_ext, skip, ll, bfinal, skip_from = (t.to(cuda) for t in (lp_ext, skip, ll, bfinal, skip_from))
+    if direction == "alpha":
+        got, want = ctc.CTC_ALPHA(lp_ext, skip.float()), ctc.forward_alphas_plain(lp_ext, skip)
+    else:
+        got = ctc.CTC_BETA(lp_ext, skip_from.float(), bfinal, ll)
+        want = ctc.betas_plain(lp_ext, ll, bfinal, skip_from)
+    assert torch.equal(got, want)
 
 
 def test_ctc_wrappers_reject_bad_cuda_input(cuda):
@@ -147,14 +159,16 @@ def test_ctc_wrappers_reject_bad_cuda_input(cuda):
 
 
 DW_TOL = dict(atol=1e-5, rtol=1e-5)  # forward and dx
-DW_SUM_REL = 1e-4  # dw partials summed over B·T terms: of the tensor's max-abs
+DW_SUM_REL = 1e-4  # dw and db, sums over B·T terms: of the tensor's max-abs
 ATTN_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_fused_attention.py's forward tolerance
 ATTN_GRAD_TOL = dict(atol=2e-5, rtol=1e-4)  # … and its gradient tolerance
 
 
 @pytest.mark.parametrize(
     "B,T,C,K",
-    [(5, 640, 288, 15), (32, 384, 288, 15), (2, 37, 40, 3), (3, 100, 50, 31), (2, 1, 288, 15)],
+    [(5, 640, 288, 15), (32, 384, 288, 15), (2, 37, 40, 3), (3, 100, 50, 31), (2, 1, 288, 15)]
+    # one tile, its edges and ten tiles, each unrolled K; C 50: 4-byte copies
+    + [(3, T, 50 if K == 31 else 288, K) for T in (1, 63, 64, 65, 640) for K in (1, 15, 31)],
 )
 def test_depthwise_kernels_match_plain(cuda, B, T, C, K):
     gen = torch.Generator().manual_seed(T)
@@ -162,14 +176,40 @@ def test_depthwise_kernels_match_plain(cuda, B, T, C, K):
     w, b = torch.randn((K, C), generator=gen).to(cuda), torch.randn((C,), generator=gen).to(cuda)
     before = (dwc.DW_FWD.launches, dwc.DW_BWD.launches)
     y = dwc.DW_FWD(x, w, b)
-    dx, dwp = dwc.DW_BWD(x, w, g)
+    dx, part = dwc.DW_BWD(x, w, g)
     torch.cuda.synchronize()
     assert (dwc.DW_FWD.launches, dwc.DW_BWD.launches) == (before[0] + 1, before[1] + 1)
     want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, g)
     torch.testing.assert_close(y, dwc.depthwise_conv1d_plain(x, w, b), **DW_TOL)
     torch.testing.assert_close(dx, want_dx, **DW_TOL)
-    dw, want_dw = dwp.sum(dim=(0, 1)), want_dwp.sum(dim=0)
-    torch.testing.assert_close(dw, want_dw, rtol=0, atol=DW_SUM_REL * float(want_dw.abs().max()))
+    assert part.shape[2:] == (K + 1, C)
+    sums = part.sum(dim=(0, 1))
+    for got, want in ((sums[:K], want_dwp.sum(dim=0)), (sums[K], g.sum(dim=(0, 1)))):
+        torch.testing.assert_close(got, want, rtol=0, atol=DW_SUM_REL * float(want.abs().max()))
+    # fixed-order sums, no atomics: a second backward is bit-identical
+    dx2, part2 = dwc.DW_BWD(x, w, g)
+    assert torch.equal(dx, dx2) and torch.equal(part, part2)
+    # the op's backward is the kernel and one sum of its partials
+    xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+    grads = torch.autograd.grad(dwc.depthwise_conv1d(xr, wr, br), (xr, wr, br), g)
+    for got, want in zip(grads, (dx, sums[:K], sums[K])):
+        assert torch.equal(got, want)
+
+
+def test_depthwise_backward_takes_misaligned_rows(cuda):
+    """x and g 4 bytes off a 16-byte boundary take the 4-byte copies."""
+    gen = torch.Generator().manual_seed(1)
+    B, T, C, K = 2, 130, 64, 15
+    x, g = (torch.randn((B * T * C + 1,), generator=gen).to(cuda)[1:].view(B, T, C)
+            for _ in range(2))
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    w = torch.randn((K, C), generator=gen).to(cuda)
+    dx, part = dwc.DW_BWD(x, w, g)
+    want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, g)
+    torch.testing.assert_close(dx, want_dx, **DW_TOL)
+    want_dw = want_dwp.sum(dim=0)
+    torch.testing.assert_close(part.sum(dim=(0, 1))[:K], want_dw, rtol=0,
+                               atol=DW_SUM_REL * float(want_dw.abs().max()))
 
 
 def _attn_case(B, T, H, hd, cuda, drop):

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``ssd_tpu_torch`` module and
 ``chip_smoke`` pulls in neither JAX (nor flax, optax, orbax) nor any module
 of ``ssd_tpu``, and none of the packages the card machine lacks (``yaml``,
-``pandas``, ``tensorboardX``), which the port imports lazily."""
+``pandas``, ``tensorboardX``): the port reads YAML itself and imports the
+other two lazily."""
 
 import os
 import subprocess

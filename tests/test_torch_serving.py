@@ -2,7 +2,10 @@
 on the same raw EMG and weights, the port's checkpoint round trip, its HTTP
 front end, and its refusal to fall back to the CPU."""
 
+import argparse
 import json
+import logging
+import sys
 import threading
 import urllib.error
 import urllib.request
@@ -16,9 +19,11 @@ import torch
 from ssd_tpu.data.vocab import default_vocab as jax_default_vocab
 from ssd_tpu.models.ssd_model import build_model as jax_build_model
 from ssd_tpu.serving import engine as jeng
+from ssd_tpu.serving import server as jserver
 from ssd_tpu_torch.data.vocab import default_vocab
 from ssd_tpu_torch.models.flax_bridge import state_dict_from_flax
 from ssd_tpu_torch.serving import engine as teng
+from ssd_tpu_torch.serving import server as tserver
 from ssd_tpu_torch.serving.server import encode_npy, serve
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 
@@ -205,3 +210,79 @@ def test_streaming_transcriber_refreshes_and_finishes(weights):
     assert stream.finish() == engine.transcribe([emg])[0]
     stream.reset()
     assert stream.hypothesis == "" and stream.finish() == ""
+
+
+def _jax_server_parser(monkeypatch) -> argparse.ArgumentParser:
+    """The JAX server's parser, caught as its ``main`` calls ``parse_args``."""
+    caught = []
+
+    class Caught(Exception):
+        pass
+
+    def catch(self, *args, **kwargs):
+        caught.append(self)
+        raise Caught
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", catch)
+        m.setattr("ssd_tpu.utils.config.setup_cli_logging", lambda: None)
+        with pytest.raises(Caught):
+            jserver.main()
+    return caught[0]
+
+
+def _argv_for(action: argparse.Action, option: str) -> list:
+    if action.nargs == 0:
+        return [option]
+    if action.choices:
+        return [option, str(list(action.choices)[-1])]
+    value = {int: "3", float: "0.7"}.get(action.type, "some/path")
+    return [option, value]
+
+
+def test_server_accepts_every_jax_server_flag(weights, tmp_path, monkeypatch, caplog):
+    """Each option string of the JAX server's parser parses in the port's,
+    and ``--alpha`` / ``--beta`` reach the engine through ``main``;
+    ``--compile-cache`` is logged once as unused."""
+    jparser = _jax_server_parser(monkeypatch)
+    parser = tserver.build_parser()
+    options = [(a, o) for a in jparser._actions if a.dest != "help" for o in a.option_strings]
+    assert {"--alpha", "--beta", "--compile-cache", "--lm-path", "--quantize"} <= {o for _, o in options}
+    for action, option in options:
+        argv = _argv_for(action, option)
+        if option != "--checkpoint":
+            argv = ["--checkpoint", "ck"] + argv
+        assert vars(parser.parse_args(argv))[action.dest] is not None, option
+
+    _, _, sd = weights
+    vocab_path = tmp_path / "vocab.json"
+    default_vocab().to_json(vocab_path)
+    save_checkpoint(tmp_path / "run", sd, _cfg(vocab_path))
+    started = []
+    monkeypatch.setattr(tserver.ThreadingHTTPServer, "serve_forever", lambda self: started.append(self))
+    monkeypatch.setattr("ssd_tpu_torch.utils.config.setup_cli_logging", lambda: None)
+    monkeypatch.setattr(sys, "argv", [
+        "server", "--checkpoint", str(tmp_path / "run" / "last"), "--port", "0",
+        "--device", "cpu", "--no-warmup", "--alpha", "0.7", "--beta", "0.2",
+        "--compile-cache", str(tmp_path / "cache")])
+    with caplog.at_level(logging.INFO, logger=tserver.logger.name):
+        tserver.main()
+    (server,) = started
+    assert (server.batcher.engine.alpha, server.batcher.engine.beta) == (0.7, 0.2)
+    assert sum("--compile-cache" in r.getMessage() for r in caplog.records) == 1
+
+
+def test_engine_lm_weights_precedence(weights):
+    """CLI / constructor > the checkpoint's decoding block > 0.5 / 0.0, as
+    the JAX engine; they change no text without an LM."""
+    _, _, sd = weights
+    cfg = _cfg()
+    plain = teng.InferenceEngine(cfg, sd, default_vocab(), device="cpu")
+    assert (plain.alpha, plain.beta) == (0.5, 0.0)
+    cfg["decoding"].update(alpha=0.4, beta=0.1)
+    from_cfg = teng.InferenceEngine(cfg, sd, default_vocab(), device="cpu")
+    assert (from_cfg.alpha, from_cfg.beta) == (0.4, 0.1)
+    given = teng.InferenceEngine(cfg, sd, default_vocab(), device="cpu", alpha=0.9, beta=0.3)
+    assert (given.alpha, given.beta) == (0.9, 0.3)
+    reqs = _requests(seed=4)
+    assert given.transcribe(reqs) == plain.transcribe(reqs)
