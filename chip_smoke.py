@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving, training and evaluation paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -79,7 +79,11 @@ failing loudly:
              alone, from the raw aten op on one untimed forward's output and
              log-sum-exp) and ``F.conv1d``; the depthwise op's whole backward
              (kernel and the sum of its partials) beside the earlier tree's
-             recorded time, which it must beat. Attention bounds at the
+             recorded time, which it must beat; the depthwise forward
+             bit-equal to its plain version (``torch.equal``), its CTA count
+             printed, no slower than the tile kernel's recorded times at the
+             serving and config shapes and ≥ 1.25× faster at the flagship.
+             Attention bounds at the
              3×TF32 rate (3 × flops / 495 TFLOP/s) beside the fp32 SIMT one;
              each attention kernel must be ≥ 1.25× faster than the previous
              SIMT kernels' recorded times at the config and flagship shapes,
@@ -95,6 +99,22 @@ failing loudly:
              kernel per step, backward kernels per train step only), then
              served; (c) phase 8's card-vs-CPU step and overfit; (d) phase
              9's rate with the four kernels' share of the step.
+12. evaluate — ``ssd_tpu_torch.evaluation.evaluate.main`` in-process with
+             ``--device cuda`` on phase 7's cached and raw checkpoints and
+             phase 11b's fused/pallas one, greedy and beam-50, over the
+             corpus's 4 val utterances in 2 batches: the three output files
+             (``config_used.json`` equal to the checkpoint's config), launch
+             counts zeroed before each run (log-mel once a batch in raw mode,
+             attention and depthwise forward once a block and batch in the
+             fused/pallas configuration, nothing else), the card's log-probs
+             against a CPU forward of the same checkpoint and batches within
+             phase 4's tolerance, the texts the decoder returned written to
+             ``predictions.jsonl``, and greedy text equal to the port's CPU
+             decoder on the card's log-probs (beam-50's agreement counted:
+             on these flat log-probs the two devices' beams may part;
+             phase 4 holds beam text on decisive ones); WER / CER,
+             utterances/s and decode p50 printed with the card's name and
+             power limit.
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
@@ -129,7 +149,9 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ssd_tpu_torch.data.index_dataset import save_index
-from ssd_tpu_torch.data.vocab import default_vocab
+from ssd_tpu_torch.data.vocab import Vocab, default_vocab
+from ssd_tpu_torch.decoding import ctc as decoding
+from ssd_tpu_torch.evaluation import evaluate as ev
 from ssd_tpu_torch.models.conformer import init_flax_style
 from ssd_tpu_torch.models.ssd_model import build_model
 from ssd_tpu_torch.ops import attention as attn
@@ -996,7 +1018,7 @@ HEADS, HEAD_DIM, CHANNELS_DW, TAPS = 6, 48, 288, 15
 # the JAX package's own tolerances (tests/test_fused_attention.py:34,55)
 ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
 ATTN_GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
-DW_TOL = dict(atol=1e-5, rtol=1e-5)  # forward and dx
+DW_TOL = dict(atol=1e-5, rtol=1e-5)  # dx (the forward is held bit-equal)
 DW_SUM_REL = 1e-4  # dw: sums over B·T terms, within this × the tensor's max-abs
 SDPA_BACKEND = SDPBackend.EFFICIENT_ATTENTION  # fp32 SDPA on the card: 3xTF32 tensor cores
 # the earlier fp32-SIMT attention kernels' times at the config and flagship
@@ -1013,6 +1035,11 @@ ATTN_GATE = 1.25
 TILE_DW_BWD_MS = {"config": 0.0121, "flagship": 0.0392}
 DW_BWD_GATE = {"config": 1.0, "flagship": 1.25}
 TILE_DW_BWD_OP_MS = {"config": 0.0297, "flagship": 0.0753}
+# the depthwise forward before its register-window redesign, the tile kernel
+# (PERF.md §6, H100 80GB HBM3 at 700 W): the new kernel must be no slower at
+# the serving and config shapes and 1.25x faster at the flagship
+TILE_DW_FWD_MS = {"serving": 0.0095, "config": 0.0071, "flagship": 0.0191}
+DW_FWD_GATE = {"serving": 1.0, "config": 1.0, "flagship": 1.25}
 
 
 def sdpa_bias(mask: torch.Tensor, heads: int) -> torch.Tensor:
@@ -1145,7 +1172,8 @@ def phase_attention_depthwise(rng: np.random.Generator) -> dict:
         sums = part.sum(dim=(0, 1))
         dw, db = sums[:TAPS], sums[TAPS]
         want_dw, want_db = want_dwp.sum(dim=0), gx.sum(dim=(0, 1))
-        check(close(y, want_y, **DW_TOL), f"depthwise forward {label}: {max_err([y], [want_y])}")
+        check(torch.equal(y, want_y), f"depthwise forward {label}: not bit-equal to the plain "
+              f"version (max abs err {max_err([y], [want_y])})")
         check(close(dx, want_dx, **DW_TOL), f"depthwise dx {label}: {max_err([dx], [want_dx])}")
         for name, got, want in (("dw", dw, want_dw), ("db", db, want_db)):
             atol = DW_SUM_REL * float(want.abs().max())
@@ -1156,6 +1184,7 @@ def phase_attention_depthwise(rng: np.random.Generator) -> dict:
         check(all(torch.equal(a, b) for a, b in zip(op_grads, (dx, dw, db))),
               f"depthwise {label}: the op's gradients are not the kernel's")
         strips = part.shape[1]
+        fwd_ctas = dwc.DW_FWD.library.load().ssd_dw_fwd_ctas(B, T, CHANNELS_DW)
         pad = TAPS // 2
         xc = x.transpose(1, 2).contiguous()
         wc = w.t().contiguous()[:, None, :]
@@ -1190,6 +1219,14 @@ def phase_attention_depthwise(rng: np.random.Generator) -> dict:
               f"tiles a batch row, {-(-CHANNELS_DW // 32) * strips * B} CTAs; "
               f"the op's whole backward (kernel + one sum of the (B, strips, K + 1, C) partials, "
               f"through autograd) {t['depthwise_bwd_op']:.4f} ms")
+        limit = TILE_DW_FWD_MS[label] / DW_FWD_GATE[label]
+        print(f"[kernels] {label} B={B} T'={T} depthwise forward: bit-equal to the plain version "
+              f"(torch.equal), {fwd_ctas} CTAs; "
+              f"{t['depthwise_fwd']:.4f} ms against the tile kernel's {TILE_DW_FWD_MS[label]} ms: "
+              f"{TILE_DW_FWD_MS[label] / t['depthwise_fwd']:.2f}x faster (gate: ≥ {DW_FWD_GATE[label]}x, "
+              f"≤ {limit:.4f} ms)")
+        check(t["depthwise_fwd"] <= limit, f"depthwise_fwd at {label}: {t['depthwise_fwd']:.4f} ms "
+              f"> {limit:.4f} ms")
         if label in TILE_DW_BWD_MS:
             limit = TILE_DW_BWD_MS[label] / DW_BWD_GATE[label]
             op_before = TILE_DW_BWD_OP_MS[label]
@@ -1290,6 +1327,128 @@ def phase_fused_train(root: Path, rng: np.random.Generator) -> dict:
     return c
 
 
+EVAL_BATCH = 2  # the corpus's 4 val utterances in 2 batches
+
+
+@contextlib.contextmanager
+def captured_decodes(seen: list):
+    """Route ``evaluate``'s decoder factory through a wrapper that keeps,
+    for each batch, the factory's keyword arguments, the log-probs and
+    lengths the decoder was given and the texts it returned; decoding itself
+    is unchanged."""
+    build = ev.build_decoder
+
+    def capturing(**kwargs):
+        decode = build(**kwargs)
+
+        def wrapped(log_probs, lengths):
+            texts = decode(log_probs, lengths)
+            seen.append((kwargs, log_probs.clone(), lengths.clone(), texts))
+            return texts
+
+        return wrapped
+
+    ev.build_decoder = capturing
+    try:
+        yield seen
+    finally:
+        ev.build_decoder = build
+
+
+def cpu_log_probs(ckpt: Path, cfg: dict) -> list:
+    """The same checkpoint's log-probs on the CPU, batch by batch, over the
+    same loader (no shuffle) as the card's run."""
+    data = cfg["data"]
+    seen = []
+
+    def keep(log_probs, lengths):
+        seen.append((log_probs, lengths))
+        return [""] * log_probs.shape[0]
+
+    ev.evaluate_checkpoint(ckpt, copy.deepcopy(cfg), Vocab.from_json(Path(data["vocab"])),
+                           data["val_splits"], data["val_subsets"], keep,
+                           batch_size=EVAL_BATCH, device="cpu")
+    return seen
+
+
+def phase_evaluate(root: Path, card: str) -> dict:
+    """Phase 12: the eval CLI in-process on the card, greedy and beam-50, on
+    phase 7's cached and raw checkpoints and phase 11b's fused/pallas one."""
+    L = encoder_key("num_layers")
+    totals = dict.fromkeys(COUNTERS, 0)
+    for name in ("cached", "raw", "fused"):
+        run = root / f"run_{name}"
+        cfg = load_config(run / "config.json")
+        raw = bool(cfg["data"].get("train_from_raw"))
+        fused = cfg["model"]["encoder"].get("attention_impl") == "fused"
+        reference = cpu_log_probs(run / "last", cfg)
+        for decoder in ("greedy", "beam"):
+            out = root / "eval" / f"{name}_{decoder}"
+            argv = ["--checkpoint", str(run / "last"), "--device", "cuda", "--decoder", decoder,
+                    "--batch-size", str(EVAL_BATCH), "--output", str(out)]
+            if decoder == "beam":
+                argv += ["--beam-width", "50"]
+            seen = []
+            with captured_decodes(seen):
+                reset_counts()
+                t0 = time.perf_counter()
+                ev.main(argv)
+                wall = time.perf_counter() - t0
+                c = counts()
+            metrics = json.loads((out / "metrics.json").read_text())
+            preds = [json.loads(line) for line in (out / "predictions.jsonl").read_text().splitlines()]
+            used = json.loads((out / "config_used.json").read_text())
+            what = f"eval {name} {decoder}"
+            check(used == cfg, f"{what}: config_used.json differs from the checkpoint's config")
+            check(set(metrics) >= {"wer", "cer", "error_breakdown", "decode_latency_sec", "decoder",
+                                   "data", "run_name"}, f"{what}: metrics.json keys {sorted(metrics)}")
+            n = metrics["data"]["num_samples"]
+            check(n == len(preds) == 4, f"{what}: {n} utterances scored, {len(preds)} predictions")
+            check(metrics["decoder"]["beam_width"] == (50 if decoder == "beam" else None),
+                  f"{what}: decoder block {metrics['decoder']}")
+            batches = len(seen)
+            want = dict.fromkeys(COUNTERS, 0)
+            want["logmel"] = batches if raw else 0
+            if fused:
+                want["attention_fwd"] = want["depthwise_fwd"] = L * batches
+            check(batches == len(reference) == 2 and c == want,
+                  f"{what}: {batches} batches launched {c}, expected {want}")
+            for k in totals:
+                totals[k] += c[k]
+            errs, texts, agree = [], [], 0
+            for (kwargs, lp, ol, decoded), (lp_cpu, ol_cpu) in zip(seen, reference):
+                check(lp.is_cuda and torch.equal(ol.cpu(), ol_cpu), f"{what}: out lengths differ")
+                check(bool(torch.isfinite(lp).all()), f"{what}: non-finite log-probs")
+                lp_host = lp.cpu()
+                errs.append(float((lp_host - lp_cpu).abs().max()))
+                check(close(lp_host, lp_cpu, **LOGPROB_TOL), f"{what}: card vs CPU log-probs max abs "
+                      f"err {errs[-1]} > {LOGPROB_TOL}")
+                texts += decoded
+                cpu_texts = decoding.build_decoder(**kwargs)(lp_host, ol.cpu())
+                agree += sum(a == b for a, b in zip(decoded, cpu_texts))
+                # greedy is an argmax: the CPU's text on the same log-probs is
+                # the card's. A beam over the flat log-probs of these barely
+                # trained checkpoints is not: the card's and the CPU's exp / log
+                # differ by an ulp and send the search down other prefixes, so
+                # beam text is held to the CPU decoder on decisive log-probs in
+                # phase 4 and only counted here
+                if decoder == "greedy":
+                    check(decoded == cpu_texts, f"{what}: the card's texts {decoded} differ from "
+                          f"the CPU decoder's {cpu_texts} on the same log-probs")
+            check(texts == [p["hyp"] for p in preds],
+                  f"{what}: predictions.jsonl is not what the decoder returned")
+            lat = metrics["decode_latency_sec"]
+            print(f"[eval] {name} {decoder}{'-50' if decoder == 'beam' else ''}: {n} utterances in "
+                  f"{batches} batches, WER {metrics['wer']:.4f} CER {metrics['cer']:.4f}; "
+                  f"{n / wall:.2f} utterances/s (the CLI call end to end, host clock: checkpoint "
+                  f"load, data, forward, decode, files), decode p50 {lat['p50'] * 1e3:.3f} ms an "
+                  f"utterance; log-probs vs the CPU forward max abs err {max(errs):.3e} (tol "
+                  f"{LOGPROB_TOL}); {agree} of {n} texts equal to the CPU decoder's on the card's "
+                  f"log-probs{' (gated)' if decoder == 'greedy' else ''}; "
+                  f"launches {({k: v for k, v in c.items() if v})}; {card}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
@@ -1326,8 +1485,10 @@ def main() -> int:
         trained = timed("fused train", phase_fused_train, train_dir, rng)
         timed("fused train parity", phase_train_parity, rng, **FUSED)
         timed("fused train rate", phase_train_rate, rng, ctc_out["times"], new_out["times"], **FUSED)
+        evaluated = timed("evaluate", phase_evaluate, train_dir, card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
+    entry["launches"] += evaluated["logmel"]
     kernels = [entry]
     for name in ("alpha", "beta"):
         e = ctc_out["entries"][name]
@@ -1335,7 +1496,8 @@ def main() -> int:
         kernels.append(e)
     for name in ("attention_fwd", "attention_bwd", "depthwise_fwd", "depthwise_bwd"):
         e = new_out["entries"][name]
-        e["launches"] = served[name] + trained[name]  # phase 11's two counted runs
+        # phase 11's two counted runs and phase 12's
+        e["launches"] = served[name] + trained[name] + evaluated[name]
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
     print(f"[time] total {sum(seconds.values()):.2f} s")

@@ -5,7 +5,8 @@ counterpart sits at the same path. It imports ``torch`` and numpy only —
 never JAX, flax, orbax or anything under ``ssd_tpu`` — and keeps its own
 copies of the framework-free modules it needs.
 
-Ported so far (the serving path, raw EMG → text):
+Ported so far (serving, training and evaluation; ROADMAP.md lists the
+modules), among them the serving path, raw EMG → text:
 
 * ``ops/featurizer.py`` — log-mel featurizer; its frame → mel → log core is
   the hand-written CUDA kernel ``csrc/logmel.cu`` on the card;
@@ -13,7 +14,9 @@ Ported so far (the serving path, raw EMG → text):
   ``flax_bridge.py`` to load the JAX package's weights;
 * ``ops/ctc_decode.py`` — greedy and prefix beam search on the device;
 * ``serving/`` — ``InferenceEngine`` and the micro-batched HTTP server;
-* ``training/checkpoint.py`` — the port's checkpoint format.
+* ``training/checkpoint.py`` — the port's checkpoint format;
+* ``decoding/ctc.py`` and ``evaluation/`` — the decoder factory, WER / CER
+  and the eval CLI.
 
 See ROADMAP.md for what is still to come.
 """

@@ -24,12 +24,22 @@
 //
 // What the design does about it. The TPU kernel keeps one batch element's
 // whole (T, C) tile in VMEM; 227 KB of shared memory holds no such tile, so:
-//   * forward: one CTA takes (32 channels, 64 time rows, one batch row); its
-//     rows plus the K − 1 halo are staged in shared memory, one warp per row,
-//     128 contiguous bytes a warp (channel-last is contiguous in C);
-//     256 threads = 32 channels × 8 row groups; a thread keeps its channel's
-//     K taps and a sliding window of 8 + K − 1 inputs in registers (K is
-//     unrolled up to a compile-time bound of 15 or 31) and writes 8 rows;
+//   * forward: no shared memory. A thread takes one channel and kFwdRows
+//     output rows; it loads its whole window, kFwdRows + K − 1 rows, from
+//     global memory into registers with every load issued before the first
+//     is used, keeps its channel's K taps and the bias in registers (K is
+//     unrolled up to a compile-time bound of 15 or 31), and writes its rows.
+//     A warp is 32 neighbouring channels, so each load and store is 128
+//     contiguous bytes (channel-last is contiguous in C); the kFwdWarps warps
+//     of a CTA take consecutive row segments of one channel slab, so a
+//     segment's K − 1 halo rows are mostly its neighbour's rows, read
+//     through the read-only cache. At 72 registers and no barrier an SM
+//     holds 7 CTAs, each with all its loads outstanding at once — the bytes
+//     in flight a bytes-bound kernel needs. (A cp.async ring of 64-row tiles
+//     in shared memory, the backward's design, takes 80 registers, so 3
+//     CTAs an SM with one tile in flight each, and was 1.4–1.5× slower on an
+//     H100 80GB HBM3 at 700 W: scripts/bench_depthwise_variants.py builds it
+//     from scripts/depthwise_fwd_ring.cu and times it beside this one.)
 //   * backward: one CTA takes one batch row × kBwdCh channels over a strip of
 //     whole 64-row tiles — strips as long as balance the SMs (bwd_strips) —
 //     and walks it through a kStages-deep cp.async ring of x and g rows in
@@ -51,11 +61,12 @@
 
 namespace {
 
-constexpr int kCh = 32;                  // forward: channels per CTA
-constexpr int kGroups = 8;               // row groups per CTA
-constexpr int kRows = 8;                 // output rows per thread and tile
+constexpr int kFwdRows = 16;                   // forward: output rows a thread
+constexpr int kFwdWarps = 4;                   // forward: warps (row segments) a CTA
+constexpr int kFwdThreads = 32 * kFwdWarps;    // 128: 32 channels × kFwdWarps segments
+constexpr int kGroups = 8;               // backward: row groups per CTA
+constexpr int kRows = 8;                 // backward: output rows per thread and tile
 constexpr int kTile = kGroups * kRows;   // 64 time rows a tile
-constexpr int kThreads = kCh * kGroups;  // 256
 constexpr int kMaxK = 31;
 constexpr int kBwdCh = 32;                     // backward: channels per CTA
 constexpr int kBwdThreads = kBwdCh * kGroups;  // 256
@@ -66,51 +77,36 @@ constexpr int kStripTiles = 0;                 // tiles a strip; 0: bwd_strips' 
 static_assert(kStages * kTile + kMaxK - 1 <= kRingRows,
               "the ring holds a tile, its halo and the tiles in flight");
 
-// Stage rows [r0, r0 + n) × channels [c0, c0 + kCh) of one (T, C) slab into
-// dst (n × kCh); zero outside [0, T) and past C.
-__device__ __forceinline__ void stage(const float* __restrict__ src, float* dst, int r0, int n,
-                                      int T, int C, int c0) {
-  for (int i = threadIdx.x; i < n * kCh; i += kThreads) {
-    const int r = r0 + i / kCh;
-    const int c = c0 + i % kCh;
-    dst[i] = (r >= 0 && r < T && c < C) ? src[static_cast<long long>(r) * C + c] : 0.f;
-  }
-}
-
+// The forward over (32 channels, kFwdWarps segments of kFwdRows rows, one
+// batch row): thread (channel c, segment) computes rows [t0, t0 + kFwdRows).
 template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdThreads)
 dw_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ bias, float* __restrict__ y, int T, int C, int K) {
-  extern __shared__ float xs[];  // (kTile + K − 1) × kCh: x rows t0 − pad …
   const int pad = (K - 1) / 2;
-  const int cl = threadIdx.x % kCh;
-  const int grp = threadIdx.x / kCh;
-  const int c0 = blockIdx.x * kCh;
-  const int t0 = blockIdx.y * kTile;
-  const int c = c0 + cl;
+  const int c = blockIdx.x * 32 + threadIdx.x % 32;
+  const int t0 = (blockIdx.y * kFwdWarps + threadIdx.x / 32) * kFwdRows;
+  if (t0 >= T || c >= C) return;  // no barrier follows
   const long long slab = static_cast<long long>(blockIdx.z) * T * C;
-
-  stage(x + slab, xs, t0 - pad, kTile + K - 1, T, C, c0);
+  const float* xc = x + slab + c;
+  float win[kFwdRows + KMAX - 1];  // x rows t0 − pad + q, zero outside [0, T)
+#pragma unroll
+  for (int q = 0; q < kFwdRows + KMAX - 1; ++q) {
+    const int r = t0 - pad + q;
+    win[q] = (q < kFwdRows + K - 1 && r >= 0 && r < T) ? __ldg(xc + static_cast<long long>(r) * C)
+                                                        : 0.f;
+  }
   float taps[KMAX];
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) taps[j] = (j < K && c < C) ? w[j * C + c] : 0.f;
-  const float b0 = c < C ? bias[c] : 0.f;
-  __syncthreads();
-  if (c >= C) return;
-
-  const int rbase = grp * kRows;
-  float win[kRows + KMAX - 1];  // x rows t0 − pad + rbase + i
+  for (int j = 0; j < KMAX; ++j) taps[j] = j < K ? __ldg(w + j * C + c) : 0.f;
+  const float b0 = __ldg(bias + c);
 #pragma unroll
-  for (int i = 0; i < kRows + KMAX - 1; ++i)
-    win[i] = i < kRows + K - 1 ? xs[(rbase + i) * kCh + cl] : 0.f;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < kFwdRows; ++r) {
     float acc = b0;
 #pragma unroll
     for (int j = 0; j < KMAX; ++j)
       if (j < K) acc = __fadd_rn(acc, __fmul_rn(win[r + j], taps[j]));
-    const int t = t0 + rbase + r;
-    if (t < T) y[slab + static_cast<long long>(t) * C + c] = acc;
+    if (t0 + r < T) y[slab + static_cast<long long>(t0 + r) * C + c] = acc;
   }
 }
 
@@ -268,10 +264,6 @@ inline int bwd_strips(int B, int T, int C, int sms) {
   return (tiles + best - 1) / best;
 }
 
-inline dim3 grid_for(int B, int T, int C) {
-  return dim3((C + kCh - 1) / kCh, (T + kTile - 1) / kTile, B);
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -281,10 +273,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int KMAX>
 cudaError_t launch_fwd(const float* x, const float* w, const float* b, float* y, int B, int T,
                        int C, int K, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kTile + K - 1) * kCh * sizeof(float);
-  cudaError_t err = allow_smem(dw_fwd_kernel<KMAX>, smem);
-  if (err != cudaSuccess) return err;
-  dw_fwd_kernel<KMAX><<<grid_for(B, T, C), kThreads, smem, stream>>>(x, w, b, y, T, C, K);
+  constexpr int kSeg = kFwdRows * kFwdWarps;  // rows a CTA
+  const dim3 grid((C + 31) / 32, (T + kSeg - 1) / kSeg, B);
+  dw_fwd_kernel<KMAX><<<grid, kFwdThreads, 0, stream>>>(x, w, b, y, T, C, K);
   return cudaGetLastError();
 }
 
@@ -311,7 +302,8 @@ cudaError_t launch_bwd_k(const float* x, const float* w, const float* g, float* 
 }
 
 inline bool valid(int B, int T, int C, int K) {
-  return B >= 1 && T >= 1 && C >= 1 && K >= 1 && K % 2 == 1 && K <= kMaxK && B <= 65535;
+  return B >= 1 && T >= 1 && C >= 1 && K >= 1 && K % 2 == 1 && K <= kMaxK && B <= 65535 &&
+         T <= 65535 * kFwdRows * kFwdWarps;
 }
 
 }  // namespace
@@ -328,6 +320,11 @@ cudaError_t ssd_dw_fwd_launch(const float* x, const float* w, const float* b, fl
   if (!valid(B, T, C, K)) return cudaErrorInvalidValue;
   if (K <= 15) return launch_fwd<15>(x, w, b, y, B, T, C, K, stream);
   return launch_fwd<kMaxK>(x, w, b, y, B, T, C, K, stream);
+}
+
+// The CTAs ssd_dw_fwd_launch takes for (B, T, C), of 32 × kFwdWarps threads.
+int ssd_dw_fwd_ctas(int B, int T, int C) {
+  return B * ((C + 31) / 32) * ((T + kFwdRows * kFwdWarps - 1) / (kFwdRows * kFwdWarps));
 }
 
 // The strip count ssd_dw_bwd_launch takes for (B, T, C) on a card of sms SMs.

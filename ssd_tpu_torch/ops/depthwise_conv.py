@@ -84,6 +84,7 @@ _DW_LIBRARY = CudaLibrary(
     "depthwise_conv.cu",
     {
         "ssd_dw_fwd_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "ssd_dw_fwd_ctas": ([_I, _I, _I], _I),
         "ssd_dw_bwd_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "ssd_dw_bwd_strips": ([_I, _I, _I, _I], _I),
     },
@@ -115,7 +116,9 @@ class _DepthwiseKernel(CudaKernel):
 
 class DepthwiseFwdKernel(_DepthwiseKernel):
     """Forward stencil of ``csrc/depthwise_conv.cu`` (replaces ``_fwd_kernel``):
-    x (B, T, C), w (K, C), b (C,) → y (B, T, C)."""
+    x (B, T, C), w (K, C), b (C,) → y (B, T, C); a thread computes 16 rows
+    of one channel from a window of 16 + K − 1 rows it loads into
+    registers."""
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         B, T, C, K = self._shapes(x, w)

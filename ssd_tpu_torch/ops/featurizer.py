@@ -21,7 +21,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,19 @@ class FeaturizerConfig:
 
     def frame_count(self, n_samples: int) -> int:
         return melmod.num_frames(n_samples, self.n_fft, self.hop_length)
+
+    @classmethod
+    def from_config(cls, cfg: Dict[str, Any]) -> "FeaturizerConfig":
+        """The run config's ``features.emg`` block, the keys (and defaults)
+        the JAX trainer and eval CLI read for ``data.train_from_raw``."""
+        femg = cfg.get("features", {}).get("emg", {}) or {}
+        return cls(
+            sample_rate=int(femg.get("sample_rate", 1000)),
+            n_fft=int(femg.get("n_fft", 320)),
+            hop_length=int(femg.get("hop_length", 10)),
+            n_mels=int(femg.get("n_mels", 80)),
+            normalize=femg.get("normalize", "per_file"),
+        )
 
 
 # --------------------------------------------------------------------------

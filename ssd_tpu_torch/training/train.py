@@ -401,16 +401,7 @@ def train_from_config(
         cfg.get("augmentation", {}).get("on_device", False)
     )
     loader_spec_cfg, loader_chan_cfg = (None, None) if on_device_augment else (spec_cfg, chan_cfg)
-    featurize = None
-    if train_from_raw:
-        femg = cfg.get("features", {}).get("emg", {}) or {}
-        featurize = FeaturizerConfig(
-            sample_rate=int(femg.get("sample_rate", 1000)),
-            n_fft=int(femg.get("n_fft", 320)),
-            hop_length=int(femg.get("hop_length", 10)),
-            n_mels=int(femg.get("n_mels", 80)),
-            normalize=femg.get("normalize", "per_file"),
-        )
+    featurize = FeaturizerConfig.from_config(cfg) if train_from_raw else None
 
     include_teacher = bool(cfg["data"].get("include_teacher", True))
     teacher_strict = bool(cfg["data"].get("teacher_strict", True))

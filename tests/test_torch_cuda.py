@@ -180,7 +180,8 @@ def test_depthwise_kernels_match_plain(cuda, B, T, C, K):
     torch.cuda.synchronize()
     assert (dwc.DW_FWD.launches, dwc.DW_BWD.launches) == (before[0] + 1, before[1] + 1)
     want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, g)
-    torch.testing.assert_close(y, dwc.depthwise_conv1d_plain(x, w, b), **DW_TOL)
+    # the forward is the plain version's unfused chain, bias first: bit-equal
+    assert torch.equal(y, dwc.depthwise_conv1d_plain(x, w, b))
     torch.testing.assert_close(dx, want_dx, **DW_TOL)
     assert part.shape[2:] == (K + 1, C)
     sums = part.sum(dim=(0, 1))
@@ -210,6 +211,22 @@ def test_depthwise_backward_takes_misaligned_rows(cuda):
     want_dw = want_dwp.sum(dim=0)
     torch.testing.assert_close(part.sum(dim=(0, 1))[:K], want_dw, rtol=0,
                                atol=DW_SUM_REL * float(want_dw.abs().max()))
+
+
+@pytest.mark.parametrize("T", [64, 300, 640])
+def test_depthwise_forward_takes_misaligned_rows(cuda, T):
+    """x as an offset view, 4 bytes off a 16-byte boundary: one launch a
+    call, bit-equal to the plain version."""
+    gen = torch.Generator().manual_seed(T)
+    B, C, K = 3, 288, 15
+    x = torch.randn((B * T * C + 1,), generator=gen).to(cuda)[1:].view(B, T, C)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    w, b = torch.randn((K, C), generator=gen).to(cuda), torch.randn((C,), generator=gen).to(cuda)
+    before = dwc.DW_FWD.launches
+    y = dwc.DW_FWD(x, w, b)
+    torch.cuda.synchronize()
+    assert dwc.DW_FWD.launches == before + 1
+    assert torch.equal(y, dwc.depthwise_conv1d_plain(x, w, b))
 
 
 def _attn_case(B, T, H, hd, cuda, drop):
