@@ -115,6 +115,30 @@ failing loudly:
              phase 4 holds beam text on decisive ones); WER / CER,
              utterances/s and decode p50 printed with the card's name and
              power limit.
+13. LM fusion — a 5-gram built by
+             ``ssd_tpu_torch.decoding.build_char_lm.main`` from a seeded
+             stand-in for the reference's LM corpus (as many sentences as
+             its voiced train + val transcripts, Zipf-drawn words) and
+             loaded with ``load_packed_lm`` (writing its ``.packed.npz``
+             sidecar); the table's lookups (hit, logprob, backoff) on the
+             card ``torch.equal`` to the CPU's on every packed key and
+             4 096 seeded misses; ``beam_search_lm_device`` at beam 50,
+             top-k 16 on decisive log-probs of 8 corpus sentences, on the
+             card under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+             sync inside it) and on the CPU: the same text, equal to the
+             host search's and to the sentences, final scores within 1e-4;
+             phase 11's fused/pallas checkpoint served with ``lm_path``:
+             ``/transcribe`` at B = 1 and 8 (12 000 samples a request),
+             launch counts zeroed before and read after (log-mel once,
+             attention and depthwise forward once a block, a transcribe);
+             the LM-fused beam-50 p50 over 5 ``engine.transcribe`` runs
+             beside the plain beam-50's at B = 1 and 8, the first LM run
+             equal to the served reply (times recorded, not gated); the
+             decode alone a frame, the LM search with its specialised
+             backoff walk and with the generic one (equal text), and each
+             search's profiler busy share; the eval CLI with ``--lm-path``
+             on phase 7's cached checkpoint, ``--lm-backend device`` (beam
+             50) and ``host`` (beam 8).
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
@@ -128,6 +152,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -150,7 +175,11 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ssd_tpu_torch.data.index_dataset import save_index
 from ssd_tpu_torch.data.vocab import Vocab, default_vocab
+from ssd_tpu_torch.decoding import build_char_lm
 from ssd_tpu_torch.decoding import ctc as decoding
+from ssd_tpu_torch.decoding import device_lm as dl
+from ssd_tpu_torch.decoding.host_beam import beam_search_lm_batch
+from ssd_tpu_torch.decoding.lm import NGramLM
 from ssd_tpu_torch.evaluation import evaluate as ev
 from ssd_tpu_torch.models.conformer import init_flax_style
 from ssd_tpu_torch.models.ssd_model import build_model
@@ -159,6 +188,7 @@ from ssd_tpu_torch.ops import ctc_loss as ctc
 from ssd_tpu_torch.ops import depthwise_conv as dwc
 from ssd_tpu_torch.ops import featurizer as feat
 from ssd_tpu_torch.ops import mel as melmod
+from ssd_tpu_torch.ops.ctc_decode import traceback
 from ssd_tpu_torch.serving.engine import InferenceEngine
 from ssd_tpu_torch.serving.server import encode_npy, serve
 from ssd_tpu_torch.training import train as trainer
@@ -936,9 +966,10 @@ def phase_train_parity(rng: np.random.Generator, **enc) -> None:
           f"{totals[-1]:.4f}")
 
 
-def profile_step(step, step_ms: float, label: str, top: int = 6) -> None:
-    """Device time by kernel over one train step (``torch.profiler``), and
-    the device's busy share of the unprofiled p50 step."""
+def profile_step(step, step_ms: float, label: str, top: int = 6, tag: str = "rate") -> None:
+    """Device time by kernel over one train step (or any ``step()``;
+    ``torch.profiler``), and the device's busy share of the unprofiled p50
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):  # the first profiled run pays the tracer's start-up
@@ -949,10 +980,10 @@ def profile_step(step, step_ms: float, label: str, top: int = 6) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[rate] {label} profiler: device busy {dev_ms:.3f} ms = {100 * dev_ms / step_ms:.1f} % of "
+    print(f"[{tag}] {label} profiler: device busy {dev_ms:.3f} ms = {100 * dev_ms / step_ms:.1f} % of "
           f"the p50 step; {sum(e.count for e in events)} device events; largest:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"[rate]   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:80]}")
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:80]}")
 
 
 def phase_train_rate(rng: np.random.Generator, ctc_times: dict, kernel_times=None, **enc) -> None:
@@ -1449,6 +1480,281 @@ def phase_evaluate(root: Path, card: str) -> dict:
     return totals
 
 
+# ------------------------------------------------------ LM fusion (phase 13)
+
+LM_ORDER = 5
+# the LM corpus: as many sentences as the reference's voiced train + val
+# transcripts (90 % of its 1 588 parallel utterances, the 80/10/10 split),
+# 5–20 words each, drawn Zipf (s = 1.1) from seeded random words of 1–10
+# letters: a table of the in-domain LM's size, not a 20-line toy
+LM_SENTENCES = 1429
+LM_WORDS, LM_ZIPF = 20000, 1.1
+LM_WEIGHTS = dict(alpha=0.6, beta=0.2)  # the search check's; serving and eval take the config's
+LM_SCORE_ATOL = 1e-4  # final scores card vs CPU: the merged runs' log-sum-exp order only
+LM_HOST_WIDTH = 8  # the host search is a Python loop: width 8 keeps its eval run short
+LM_TIMED_RUNS = 5  # transcribes a search and batch: the p50 is their median, the first run included
+LM_WALK_RUNS = 5  # decodes alone a search: their median
+LM_PROFILE_FRAMES = 64  # frames of the decodes alone: a trace costs host time with its events
+
+
+def lm_corpus(root: Path, rng: np.random.Generator) -> Path:
+    """The LM's corpus as a voiced train + val JSONL index (``LM_SENTENCES``
+    rows); returns its path."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, size=int(k))) for k in rng.integers(1, 11, LM_WORDS)]
+    p = 1.0 / np.arange(1, LM_WORDS + 1) ** LM_ZIPF
+    rows = []
+    for i, n in enumerate(rng.integers(5, 21, LM_SENTENCES)):
+        text = " ".join(words[k] for k in rng.choice(LM_WORDS, size=int(n), p=p / p.sum()))
+        rows.append(dict(utterance_id=f"voiced_parallel_data/lm/{i}_0",
+                         split="voiced_parallel_data",
+                         subset="train" if 9 * i < 8 * LM_SENTENCES else "val", transcript=text))
+    path = root / "lm" / "index.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_index(rows, path)
+    return path
+
+
+def decisive_log_probs(rng: np.random.Generator, vocab: Vocab, texts: list) -> tuple:
+    """(B, T, V) log-probs that emit each text as char, blank, char, … 8
+    above seeded noise (tests/test_device_lm.py's construction, more
+    decisive), and lengths that end with each text."""
+    T = 2 * max(len(t) for t in texts)
+    logits = rng.normal(size=(len(texts), T, vocab.size)).astype(np.float32) * 0.5
+    logits[:, :, vocab.blank_id] += 1.0
+    for b, text in enumerate(texts):
+        for t, cid in enumerate(vocab.encode(text)):
+            logits[b, 2 * t, cid] += 8.0
+            logits[b, 2 * t + 1, vocab.blank_id] += 8.0
+    return torch.from_numpy(logits).log_softmax(-1), torch.tensor([2 * len(t) for t in texts])
+
+
+def lm_search_parity(arpa: Path, table, rng: np.random.Generator, texts: list) -> None:
+    """Phase 13b and c: the table's lookups on the card against the CPU's;
+    the LM search at beam 50, top-k 16 on the card (no host sync inside it)
+    against the CPU and the host search."""
+    vocab = default_vocab()
+    miss = rng.integers(0, 1 << 32, (2, 4096), dtype=np.uint64).astype(np.int64)
+    k1 = torch.from_numpy(np.concatenate([table.keys1[table.used].astype(np.int64), miss[0]]))
+    k2 = torch.from_numpy(np.concatenate([table.keys2[table.used].astype(np.int64), miss[1]]))
+    want = dl._lookup(dl._packed_device_table(table, "cpu"), k1, k2)
+    got = dl._lookup(dl._packed_device_table(table, "cuda"), k1.cuda(), k2.cuda())
+    for name, g, w in zip(("hit", "logprob", "backoff"), got, want):
+        check(torch.equal(g.cpu(), w), f"lookup {name}: the card's differ from the CPU's")
+    n_keys = int(table.used.sum())
+    check(bool(want[0][:n_keys].all()), "a packed n-gram is missing from the table")
+    print(f"[lm] lookups: {n_keys} packed keys + 4096 seeded misses "
+          f"({int(((k1 >> 31) | (k2 >> 31)).sum())} with a hash ≥ 2^31): hit, logprob and backoff "
+          f"equal card vs CPU (torch.equal); {int(want[0][n_keys:].sum())} misses hit")
+
+    lp, lengths = decisive_log_probs(rng, vocab, texts)
+    kw = dict(blank_id=vocab.blank_id, pad_id=vocab.pad_id, space_id=vocab.token_to_id[" "],
+              beam_width=50, token_top_k=16, **LM_WEIGHTS)
+    lp_c, len_c = lp.cuda(), lengths.cuda()
+    dl.beam_search_lm_device(lp_c, len_c, table, **kw)  # warm: allocator, library heuristics
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync inside the search raises
+    try:
+        card = dl.beam_search_lm_device(lp_c, len_c, table, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = dl.beam_search_lm_device(lp, lengths, table, **kw)
+
+    def texts_of(out):
+        chars, parents, _, best = (x.cpu().numpy() for x in out)
+        return [vocab.decode(p) for p in traceback(chars, parents, best)]
+
+    card_texts, cpu_texts = texts_of(card), texts_of(cpu)
+    host = beam_search_lm_batch(lp.numpy(), lengths.numpy(), vocab, NGramLM.from_arpa(arpa),
+                                beam_width=50, **LM_WEIGHTS)
+    check(card_texts == cpu_texts == host, f"LM search text: card {card_texts} / CPU {cpu_texts} / "
+          f"host {host}")
+    check(card_texts == texts, f"LM search on decisive log-probs decoded {card_texts}, not {texts}")
+    err = float((card[2].cpu().sort(dim=1).values - cpu[2].sort(dim=1).values).abs().max())
+    check(err <= LM_SCORE_ATOL, f"LM search final scores card vs CPU: max abs err {err}")
+    print(f"[lm] search B={len(texts)} T={lp.shape[1]} beam 50 top-k 16 α {LM_WEIGHTS['alpha']} "
+          f"β {LM_WEIGHTS['beta']}: no host sync inside it (sync debug mode 'error'); text equal on "
+          f"the card, the CPU and the host search, and to the emitted sentences; final scores max "
+          f"abs err card vs CPU {err:.3e} (tol {LM_SCORE_ATOL}); queued in {queued * 1e3:.1f} ms, "
+          f"done in {card_s * 1e3:.1f} ms (host clock)")
+
+
+def lm_serving(ckpt: Path, arpa: Path, rng: np.random.Generator) -> tuple:
+    """Phase 13d, the counted run: the fused/pallas checkpoint served with
+    ``lm_path``, ``/transcribe`` at B = 1 and 8. Returns the requests, the
+    replies and the launches."""
+    L = encoder_key("num_layers")
+    server = serve(ckpt, port=0, host="127.0.0.1", decoder="beam", lm_path=arpa, warmup=False,
+                   max_wait_ms=5.0, device="cuda")
+    check(server.batcher.engine.has_lm, "the server's engine did not load the LM")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    batches = {B: [rng.normal(size=(12000, CHANNELS)).astype(np.float32) for _ in range(B)]
+               for B in (1, 8)}
+    served = {}
+    reset_counts()
+    try:
+        for B, reqs in batches.items():
+            payload = ({"emg": encode_npy(reqs[0])} if B == 1
+                       else {"emg_list": [encode_npy(a) for a in reqs]})
+            served[B] = post(port, "/transcribe", payload)["hypotheses"]
+    finally:
+        server.shutdown()
+        server.batcher.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    launches = counts()
+    check(not thread.is_alive(), "server thread did not stop")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(logmel=len(batches), attention_fwd=L * len(batches),
+                depthwise_fwd=L * len(batches))
+    check(launches == want, f"{len(batches)} LM transcribes launched {launches}, expected {want}")
+    print(f"[lm] served the fused/pallas checkpoint with --lm-path (α {server.batcher.engine.alpha}, β "
+          f"{server.batcher.engine.beta}, the config's) at B = 1 and 8; launches: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return batches, served, launches
+
+
+def lm_latency(ckpt: Path, arpa: Path, table, batches: dict, served: dict,
+               rng: np.random.Generator, card: str) -> None:
+    """Phase 13e: p50 per utterance of ``engine.transcribe``, LM-fused
+    beam-50 beside plain beam-50, on the served requests (the first LM run
+    held to the served reply); then each search's decode alone on the first
+    ``LM_PROFILE_FRAMES`` frames of one request's log-probs (the time is
+    per frame, the trace stays short): the LM search with the table's own
+    backoff walk and with the generic one, and each search's device busy
+    share."""
+    lm_engine = InferenceEngine.from_checkpoint(ckpt, decoder="beam", lm_path=arpa, device="cuda")
+    plain = InferenceEngine.from_checkpoint(ckpt, decoder="beam", device="cuda")
+    engines = (("beam-50", plain), ("LM beam-50", lm_engine))
+    for B, reqs in batches.items():
+        per_utt = {name: [] for name, _ in engines}
+        texts = []
+        for _ in range(LM_TIMED_RUNS):  # the two searches alternate: both see the same host drift
+            for name, eng in engines:
+                t0 = time.perf_counter()
+                out = eng.transcribe(reqs)
+                per_utt[name].append((time.perf_counter() - t0) / B * 1e3)
+                if eng is lm_engine:
+                    texts.append(out)
+        check(texts[0] == served[B] and len(texts[0]) == B,
+              f"/transcribe with the LM at B={B}: {served[B]} != engine {texts[0]}")
+        p50 = {name: float(np.percentile(v, 50)) for name, v in per_utt.items()}
+        runs = "; ".join(f"{name} " + ", ".join(f"{v:.3f}" for v in vs) for name, vs in per_utt.items())
+        print(f"[lm] latency B={B} 12 000 samples: LM-fused beam-50 p50 {p50['LM beam-50']:.3f} ms/"
+              f"utterance beside plain beam-50 {p50['beam-50']:.3f} (median of {LM_TIMED_RUNS} "
+              f"alternating runs each, host clock, transcribe end to end; runs: {runs}); the first "
+              f"LM run equal to the served reply, {sum(t == texts[0] for t in texts)} of "
+              f"{LM_TIMED_RUNS} LM runs alike; {card}")
+    vocab = lm_engine.vocab
+    lp, ol = lm_engine.forward([batches[1][0]])
+    lp, ol = lp[:, :LM_PROFILE_FRAMES].contiguous(), ol.clamp(max=LM_PROFILE_FRAMES)
+    kw = dict(beam_width=lm_engine.beam_width, alpha=lm_engine.alpha, beta=lm_engine.beta,
+              blank_bias=lm_engine.blank_bias, token_top_k=lm_engine.token_top_k)
+    generic = dataclasses.replace(table, unk_tailed=True)  # the same answers, more lookups
+    walks = {"beam-50": lambda: plain.decode(lp, ol),
+             f"LM beam-50 ({'generic' if table.unk_tailed else 'specialised'} walk)":
+                 lambda: dl.beam_decode_lm_device(lp, ol, vocab, table, **kw),
+             "LM beam-50 (generic walk)":
+                 lambda: dl.beam_decode_lm_device(lp, ol, vocab, generic, **kw)}
+    decodes = {}
+    for name, fn in walks.items():
+        def decode(fn=fn):
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+
+        decodes[name] = decode
+    decoded = {name: decode() for name, decode in decodes.items()}  # builds the tables' device copies
+    runs = {name: [] for name in decodes}
+    for _ in range(LM_WALK_RUNS):  # alternating, as the transcribes
+        for name, decode in decodes.items():
+            t0 = time.perf_counter()
+            decode()
+            runs[name].append((time.perf_counter() - t0) * 1e3)
+    for name, decode in decodes.items():
+        ms = float(np.median(runs[name]))
+        print(f"[lm] {name} decode alone B=1 T'={LM_PROFILE_FRAMES}: {ms:.3f} ms = "
+              f"{ms / LM_PROFILE_FRAMES:.3f} ms a frame (median of {LM_WALK_RUNS} alternating runs, "
+              f"host clock; runs {', '.join(f'{r:.3f}' for r in runs[name])}); {card}")
+        profile_step(decode, ms, f"{name} decode B=1 T'={LM_PROFILE_FRAMES}", tag="lm")
+    lm_texts = list(decoded.values())[1:]
+    check(lm_texts[0] == lm_texts[1], f"the two backoff walks decoded {lm_texts}")
+
+
+def lm_evaluate(root: Path, arpa: Path, card: str) -> None:
+    """Phase 13f: the eval CLI with ``--lm-path`` on the card, the device
+    and the host backends, on phase 7's cached checkpoint."""
+    run = root / "run_cached"
+    alpha, beta = (shipped_config()["decoding"][k] for k in ("alpha", "beta"))
+    for backend, width in (("device", 50), ("host", LM_HOST_WIDTH)):
+        out = root / "eval" / f"lm_{backend}"
+        argv = ["--checkpoint", str(run / "last"), "--device", "cuda", "--decoder", "beam",
+                "--beam-width", str(width), "--lm-path", str(arpa), "--lm-backend", backend,
+                "--batch-size", str(EVAL_BATCH), "--output", str(out)]
+        seen = []
+        with captured_decodes(seen):
+            reset_counts()
+            t0 = time.perf_counter()
+            ev.main(argv)
+            wall = time.perf_counter() - t0
+            c = counts()
+        metrics = json.loads((out / "metrics.json").read_text())
+        preds = [json.loads(line) for line in (out / "predictions.jsonl").read_text().splitlines()]
+        what = f"eval with the LM, {backend} backend"
+        block = metrics["decoder"]
+        check((block["lm_path"], block["alpha"], block["beta"], block["beam_width"]) ==
+              (str(arpa), alpha, beta, width), f"{what}: decoder block {block}")
+        check(len(seen) == 2 and all(kw["host_lm"] == (backend == "host") for kw, *_ in seen)
+              and all(lp.is_cuda for _, lp, _, _ in seen), f"{what}: decoder calls")
+        check(c == dict.fromkeys(COUNTERS, 0), f"{what}: the cached checkpoint launched {c}")
+        texts = [t for *_, decoded in seen for t in decoded]
+        check(texts == [p["hyp"] for p in preds] and len(preds) == 4,
+              f"{what}: predictions.jsonl is not what the decoder returned")
+        print(f"[lm] eval {backend} LM beam-{width}: {len(preds)} utterances, WER "
+              f"{metrics['wer']:.4f} CER {metrics['cer']:.4f}; decode p50 "
+              f"{metrics['decode_latency_sec']['p50'] * 1e3:.3f} ms an utterance; "
+              f"{len(preds) / wall:.2f} utterances/s (the CLI call end to end, host clock); {card}")
+
+
+def phase_lm(root: Path, fused_ckpt: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 13: LM fusion on the card. Returns the served run's launches."""
+    arpa = root / "lm" / "char_5gram.arpa"
+    steps = {}
+    t0 = time.perf_counter()
+    build_char_lm.main(["--index", str(lm_corpus(root, rng)), "--order", str(LM_ORDER),
+                        "--output", str(arpa)])
+    table = dl.load_packed_lm(arpa, default_vocab())
+    sentences = arpa.with_suffix(".txt").read_text().splitlines()
+    check(table.order == LM_ORDER and arpa.with_name(arpa.name + ".packed.npz").exists(),
+          f"build_char_lm: order {table.order}, sidecar missing?")
+    n_words = sum(len(t.split()) for t in sentences)
+    steps["build"] = time.perf_counter() - t0
+    print(f"[lm] build_char_lm: {len(sentences)} sentences, {n_words} words → {LM_ORDER}-gram "
+          f"({len(NGramLM.from_arpa(arpa).logprob)} n-grams; unk_tailed {table.unk_tailed}) → "
+          f"{table.size} slots ({table.size * 16 / 2**20:.2f} MiB on the card) in "
+          f"{steps['build']:.2f} s")
+    t0 = time.perf_counter()
+    lm_search_parity(arpa, table, rng, sentences[:8])
+    steps["parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches, served, launches = lm_serving(fused_ckpt, arpa, rng)
+    steps["serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_latency(fused_ckpt, arpa, table, batches, served, rng, card)
+    steps["latency"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_evaluate(root, arpa, card)
+    steps["eval"] = time.perf_counter() - t0
+    print("[lm] phase 13 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
@@ -1486,9 +1792,10 @@ def main() -> int:
         timed("fused train parity", phase_train_parity, rng, **FUSED)
         timed("fused train rate", phase_train_rate, rng, ctc_out["times"], new_out["times"], **FUSED)
         evaluated = timed("evaluate", phase_evaluate, train_dir, card)
+        lm_served = timed("lm fusion", phase_lm, train_dir, run_dir / "fused" / "last", rng, card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    entry["launches"] += evaluated["logmel"]
+    entry["launches"] += evaluated["logmel"] + lm_served["logmel"]
     kernels = [entry]
     for name in ("alpha", "beta"):
         e = ctc_out["entries"][name]
@@ -1496,8 +1803,8 @@ def main() -> int:
         kernels.append(e)
     for name in ("attention_fwd", "attention_bwd", "depthwise_fwd", "depthwise_bwd"):
         e = new_out["entries"][name]
-        # phase 11's two counted runs and phase 12's
-        e["launches"] = served[name] + trained[name] + evaluated[name]
+        # phase 11's two counted runs, phase 12's and phase 13's
+        e["launches"] = served[name] + trained[name] + evaluated[name] + lm_served[name]
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
     print(f"[time] total {sum(seconds.values()):.2f} s")

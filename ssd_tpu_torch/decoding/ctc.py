@@ -8,11 +8,17 @@ closure with the JAX factory's knobs and defaults: ``beam_width``, ``alpha``
 own device (:mod:`ssd_tpu_torch.ops.ctc_decode`); only the tokens or the
 backpointers come to the host, where the strings are built.
 
-LM-fused decoding is not ported yet (ROADMAP.md queue 1 item 7): an
-``lm_path`` that exists raises ``NotImplementedError``; one that does not
-exist is skipped with a warning and the beam decodes without an LM, as the
-JAX factory does (orchestrated grids run before their LM stage exists).
-Without an LM, ``alpha``, ``beta`` and ``host_lm`` change nothing.
+With an ARPA ``lm_path`` the beam search fuses a word n-gram LM: by
+default on the log-probs' device (:mod:`ssd_tpu_torch.decoding.device_lm`,
+the LM packed into a hash table, cached beside the ARPA as
+``<name>.packed.npz``), or with ``host_lm=True`` through the host prefix
+search (:mod:`ssd_tpu_torch.decoding.host_beam`), the oracle. A CUDA tensor
+is searched on the card unless the caller asks for the host search. An
+``lm_path`` that does not exist is skipped with a warning and the beam
+decodes without an LM, as the JAX factory does (orchestrated grids run
+before their LM stage exists). Without an LM, ``alpha``, ``beta`` and
+``host_lm`` change nothing. The beam decoder's ``has_lm`` says whether it
+fuses one.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ import numpy as np
 import torch
 
 from ssd_tpu_torch.data.vocab import Vocab
+from ssd_tpu_torch.decoding.device_lm import beam_decode_lm_device, load_packed_lm
+from ssd_tpu_torch.decoding.host_beam import beam_search_lm_batch
+from ssd_tpu_torch.decoding.lm import NGramLM
 from ssd_tpu_torch.ops.ctc_decode import beam_search, greedy_decode, traceback
 
 logger = logging.getLogger(__name__)
@@ -65,17 +74,49 @@ def build_beam_decoder(
     token_top_k: Optional[int] = None,
     host_lm: bool = False,
 ) -> DecoderFn:
+    lm = None
+    lm_table = None
     if lm_path is not None:
         if Path(lm_path).exists():
-            raise NotImplementedError(
-                f"LM-fused beam search ({lm_path}) is not ported to ssd_tpu_torch yet "
-                "(ROADMAP.md queue 1 item 7)"
-            )
-        logger.warning("LM path %s does not exist — beam decoding WITHOUT LM", lm_path)
+            if host_lm:
+                lm = NGramLM.from_arpa(Path(lm_path))
+            else:
+                # the sidecar-cached packed table: parse, hash and pack once
+                # per (file, vocab, format), np.load afterwards
+                lm_table = load_packed_lm(Path(lm_path), vocab)
+        else:
+            logger.warning("LM path %s does not exist — beam decoding WITHOUT LM", lm_path)
 
     @torch.inference_mode()
     def decode(log_probs, lengths) -> List[str]:
         log_probs, lengths = _tensors(log_probs, lengths)
+        if lm_table is not None:
+            return beam_decode_lm_device(
+                log_probs,
+                lengths,
+                vocab,
+                lm_table,
+                beam_width=beam_width,
+                alpha=alpha,
+                beta=beta,
+                beam_prune_logp=beam_prune_logp,
+                token_min_logp=token_min_logp,
+                blank_bias=blank_bias,
+                token_top_k=token_top_k,
+            )
+        if lm is not None:
+            return beam_search_lm_batch(
+                log_probs.cpu().numpy(),
+                lengths.cpu().numpy(),
+                vocab,
+                lm,
+                beam_width=beam_width,
+                alpha=alpha,
+                beta=beta,
+                beam_prune_logp=beam_prune_logp,
+                token_min_logp=token_min_logp,
+                blank_bias=blank_bias,
+            )
         chars, parents, _ = beam_search(
             log_probs,
             lengths,
@@ -90,6 +131,7 @@ def build_beam_decoder(
         prefixes = traceback(np.asarray(chars.cpu()), np.asarray(parents.cpu()), 0)
         return [vocab.decode(p) for p in prefixes]
 
+    decode.has_lm = lm is not None or lm_table is not None
     return decode
 
 
@@ -110,9 +152,8 @@ def build_decoder(
 
     ``token_top_k`` restricts each frame's extension candidates to its top-k
     tokens — exact whenever ≤ k tokens pass the ``token_min_logp``
-    admission; None keeps the exact all-token sort. ``host_lm`` selects the
-    host LM oracle in the JAX package; here it is accepted and, like any LM
-    knob, changes nothing until LM fusion is ported.
+    admission; None keeps the exact all-token sort. ``host_lm`` decodes
+    with the host LM search (the oracle) instead of the device one.
     """
     if method.lower() == "beam":
         return build_beam_decoder(

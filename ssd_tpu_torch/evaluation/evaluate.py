@@ -2,7 +2,8 @@
 port of ``ssd_tpu/evaluation/evaluate.py``).
 
   python -m ssd_tpu_torch.evaluation.evaluate --checkpoint results/checkpoints/run/best \\
-      --decoder beam --beam-width 50 [--splits …] [--subsets …] [--device cuda|cpu]
+      --decoder beam --beam-width 50 [--lm-path LM.arpa [--lm-backend device|host]] \\
+      [--splits …] [--subsets …] [--device cuda|cpu]
 
 Same surface as the JAX CLI:
 
@@ -18,11 +19,14 @@ The forward runs on the card unless ``--device cpu`` is given: the
 Conformer, and in ``data.train_from_raw`` mode the CUDA log-mel kernel; with
 ``attention_impl: fused`` / ``depthwise_impl: pallas`` the attention and
 depthwise CUDA kernels. Decoding runs on the same device
-(:mod:`ssd_tpu_torch.decoding.ctc`). A missing card raises. Not ported yet,
-and raising with their ROADMAP.md item: quantization (``--quantize int8``,
-``int8_prequant`` or a checkpoint's ``encoder.quantize``; queue 1 item 9),
-``--data-parallel`` (item 10) and LM fusion (an existing ``--lm-path``; item
-7). ``--compile-cache`` has no PyTorch counterpart and is logged as unused.
+(:mod:`ssd_tpu_torch.decoding.ctc`); ``--lm-path`` (or the config's
+``decoding.lm_path``) fuses an ARPA LM into the beam, on the device or, with
+``--lm-backend host``, in the host search; a path that does not exist is
+logged and the beam decodes without it. A missing card raises. Not ported
+yet, and raising with their ROADMAP.md item: quantization (``--quantize
+int8``, ``int8_prequant`` or a checkpoint's ``encoder.quantize``; queue 1
+item 9) and ``--data-parallel`` (item 10). ``--compile-cache`` has no
+PyTorch counterpart and is logged as unused.
 """
 
 from __future__ import annotations
@@ -177,7 +181,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", type=Path)
     p.add_argument("--run-name", type=str)
     p.add_argument("--decoder", choices=["greedy", "beam"], default=None)
-    p.add_argument("--lm-path", type=Path, help="ARPA LM for fusion (not ported yet).")
+    p.add_argument("--lm-path", type=Path, help="ARPA LM for beam-search fusion.")
     p.add_argument("--beam-width", type=int)
     p.add_argument("--alpha", type=float)
     p.add_argument("--beta", type=float)
@@ -201,7 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--lm-backend", choices=["device", "host"], default="device",
-        help="LM-fused decoding backend (LM fusion is not ported yet).",
+        help="LM-fused decoding backend: the search on the log-probs' device (default) "
+        "or the host prefix search, the oracle.",
     )
     p.add_argument("--data-parallel", action="store_true", help="Not ported yet.")
     return p

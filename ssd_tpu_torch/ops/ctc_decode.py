@@ -84,6 +84,44 @@ def _run_logsumexp(values: torch.Tensor, run_id: torch.Tensor, n_runs: int) -> t
     return m + torch.log(sums.gather(1, run_id))
 
 
+def frame_candidates(
+    log_probs: torch.Tensor,
+    blank_id: int,
+    pad_id: int,
+    token_min_logp: float,
+    blank_bias: float,
+    token_top_k: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every frame's admitted tokens, for a prefix search.
+
+    The pad mass is merged into blank (pad can then never be emitted) after
+    ``blank_bias``; a token is admitted at or above ``token_min_logp`` or as
+    the frame's argmax. Returns ``(lp_adm (B, T, V): the admitted log-probs,
+    NEG_INF elsewhere; ext_ids (B, T, E): each frame's extension tokens, all
+    but blank and pad or the top ``token_top_k`` of them; lp_ext (B, T, E):
+    their admitted log-probs)``.
+    """
+    B, T, V = log_probs.shape
+    lp = log_probs.to(torch.float32).clone()
+    lp[:, :, blank_id] += blank_bias
+    if pad_id != blank_id:
+        lp[:, :, blank_id] = torch.logaddexp(lp[:, :, blank_id], lp[:, :, pad_id])
+
+    token_ids = torch.arange(V, dtype=torch.int64, device=log_probs.device)
+    ext_invalid = (token_ids == blank_id) | (token_ids == pad_id)  # (V,)
+    masked_lp = lp.masked_fill(ext_invalid[None, None, :], NEG_INF)
+    if token_top_k is not None and token_top_k < V:
+        ext_vals_all, ext_ids_all = torch.topk(masked_lp, token_top_k, dim=-1)
+    else:
+        ext_vals_all = masked_lp
+        ext_ids_all = token_ids.expand(B, T, V)
+    argmax_all = lp.argmax(dim=-1)  # (B, T)
+    admitted_all = (lp >= token_min_logp) | (token_ids[None, None, :] == argmax_all[..., None])
+    lp_adm_all = torch.where(admitted_all, lp, NEG_INF)
+    ext_adm_all = (ext_vals_all >= token_min_logp) | (ext_ids_all == argmax_all[..., None])
+    return lp_adm_all, ext_ids_all, torch.where(ext_adm_all, ext_vals_all, NEG_INF)
+
+
 def beam_search(
     log_probs: torch.Tensor,
     lengths: torch.Tensor,
@@ -112,27 +150,9 @@ def beam_search(
     B, T, V = log_probs.shape
     K = beam_width
     dev = log_probs.device
-
-    lp = log_probs.to(torch.float32).clone()
-    lp[:, :, blank_id] += blank_bias
-    if pad_id != blank_id:
-        # merge pad mass into blank; pad can then never be emitted
-        lp[:, :, blank_id] = torch.logaddexp(lp[:, :, blank_id], lp[:, :, pad_id])
-
-    token_ids = torch.arange(V, dtype=torch.int64, device=dev)
-    ext_invalid = (token_ids == blank_id) | (token_ids == pad_id)  # (V,)
-    masked_lp = lp.masked_fill(ext_invalid[None, None, :], NEG_INF)
-    if token_top_k is not None and token_top_k < V:
-        ext_vals_all, ext_ids_all = torch.topk(masked_lp, token_top_k, dim=-1)
-    else:
-        ext_vals_all = masked_lp
-        ext_ids_all = token_ids.expand(B, T, V)
-    E = ext_vals_all.shape[2]
-    argmax_all = lp.argmax(dim=-1)  # (B, T)
-    admitted_all = (lp >= token_min_logp) | (token_ids[None, None, :] == argmax_all[..., None])
-    lp_adm_all = torch.where(admitted_all, lp, NEG_INF)  # (B, T, V)
-    ext_adm_all = (ext_vals_all >= token_min_logp) | (ext_ids_all == argmax_all[..., None])
-    lp_ext_all = torch.where(ext_adm_all, ext_vals_all, NEG_INF)  # (B, T, E)
+    lp_adm_all, ext_ids_all, lp_ext_all = frame_candidates(
+        log_probs, blank_id, pad_id, token_min_logp, blank_bias, token_top_k)
+    E = ext_ids_all.shape[2]
 
     p_b = torch.full((B, K), NEG_INF, device=dev)
     p_b[:, 0] = 0.0

@@ -5,8 +5,10 @@
     hyps = engine.transcribe([emg1, emg2])   # raw (samples, channels) arrays
 
 The chain is the CUDA log-mel kernel (``ops/featurizer.py``), the Conformer
-encoder and CTC head, and greedy or beam CTC decoding on the device; only
-the decoded tokens come back to the host. Requests pad to the JAX engine's
+encoder and CTC head, and greedy or beam CTC decoding on the device — with
+an ARPA ``lm_path`` the beam fuses the n-gram LM on the device
+(``decoding/device_lm.py``); only the decoded tokens or backpointers come
+back to the host. Requests pad to the JAX engine's
 buckets — raw samples to ``SAMPLE_BUCKET`` multiples, batches to
 ``BATCH_BUCKETS`` — so both packages see the same shapes and padded rows
 (length ``n_fft``) for the same request.
@@ -17,6 +19,7 @@ missing card raises.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
@@ -27,11 +30,13 @@ import numpy as np
 import torch
 
 from ssd_tpu_torch.data.vocab import Vocab
+from ssd_tpu_torch.decoding.ctc import build_beam_decoder, build_greedy_decoder
 from ssd_tpu_torch.models.ssd_model import build_model
-from ssd_tpu_torch.ops.ctc_decode import beam_search, greedy_decode, traceback
 from ssd_tpu_torch.ops.featurizer import FeaturizerConfig, logmel_batch
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, load_config_for
 from ssd_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 SAMPLE_BUCKET = 2560  # raw-sample padding granularity (256 frames @ hop 10)
 BATCH_BUCKETS = (1, 4, 8)
@@ -95,28 +100,39 @@ class InferenceEngine:
                 f"quantize={quantize!r} is not ported to ssd_tpu_torch yet "
                 "(ROADMAP.md queue 1 item 9)"
             )
-        decoding_cfg = cfg.get("decoding", {}) or {}
-        lm_path = lm_path or decoding_cfg.get("lm_path")
-        if lm_path and decoder == "beam":
-            raise NotImplementedError(
-                "LM-fused beam search (lm_path) is not ported to ssd_tpu_torch yet "
-                "(ROADMAP.md queue 1 item 7)"
-            )
         self.device = resolve_device(device)
         self.cfg = cfg
         self.vocab = vocab
         self.decoder = decoder
         self.beam_width = beam_width
         self.blank_bias = blank_bias
-        # LM fusion weights, kept for the LM-fused beam search (ROADMAP.md
-        # queue 1 item 7); without an LM they change nothing. Constructor
-        # arg > config decoding block > 0.5 / 0.0, as the JAX engine.
+        decoding_cfg = cfg.get("decoding", {}) or {}
+        # LM fusion: path and weights from the constructor > the config's
+        # decoding block > 0.5 / 0.0, as the JAX engine
+        lm_path = lm_path or decoding_cfg.get("lm_path")
         self.alpha = float(alpha if alpha is not None else decoding_cfg.get("alpha", 0.5))
         self.beta = float(beta if beta is not None else decoding_cfg.get("beta", 0.0))
         # constructor arg > config decoding block > default 16
         if token_top_k is None:
             token_top_k = decoding_cfg.get("token_top_k", 16)
         self.token_top_k = min(int(token_top_k), vocab.size) if token_top_k else None
+        # the decoder factory's closures: it loads the LM (the sidecar-cached
+        # packed table) and warns for a path that does not exist
+        self._decoders = {
+            "greedy": build_greedy_decoder(vocab, blank_bias=blank_bias),
+            "beam": build_beam_decoder(
+                vocab,
+                lm_path=Path(lm_path) if lm_path and decoder == "beam" else None,
+                beam_width=beam_width,
+                alpha=self.alpha,
+                beta=self.beta,
+                blank_bias=blank_bias,
+                token_top_k=self.token_top_k,
+            ),
+        }
+        self.has_lm = self._decoders["beam"].has_lm
+        if self.has_lm:
+            logger.info("Serving with LM fusion on %s: %s", self.device, lm_path)
         feat_cfg = cfg.get("features", {}).get("emg", {})
         self.feat_cfg = featurizer_cfg or FeaturizerConfig(
             sample_rate=feat_cfg.get("sample_rate", 1000),
@@ -179,28 +195,7 @@ class InferenceEngine:
     ) -> List[str]:
         """Decode log-probs with ``decoder`` (default: the engine's setting)
         on their device; only tokens / backpointers reach the host."""
-        decoder = decoder or self.decoder
-        if decoder == "beam":
-            chars, parents, _ = beam_search(
-                log_probs,
-                out_lengths,
-                blank_id=self.vocab.blank_id,
-                pad_id=self.vocab.pad_id,
-                beam_width=self.beam_width,
-                blank_bias=self.blank_bias,
-                token_top_k=self.token_top_k,
-            )
-            prefixes = traceback(chars.cpu().numpy(), parents.cpu().numpy(), 0)
-            return [self.vocab.decode(p) for p in prefixes]
-        toks, counts = greedy_decode(
-            log_probs,
-            out_lengths,
-            blank_id=self.vocab.blank_id,
-            pad_id=self.vocab.pad_id,
-            blank_bias=self.blank_bias,
-        )
-        toks, counts = toks.cpu().numpy(), counts.cpu().numpy()
-        return [self.vocab.decode(toks[i, : counts[i]]) for i in range(len(counts))]
+        return self._decoders[decoder or self.decoder](log_probs, out_lengths)
 
     # ------------------------------------------------------------- public
     def transcribe(self, emg_arrays: Sequence[np.ndarray]) -> List[str]:

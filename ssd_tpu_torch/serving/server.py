@@ -3,11 +3,13 @@
 
   python -m ssd_tpu_torch.serving.server --checkpoint results/checkpoints/run/best \
       [--port 8776] [--decoder beam] [--max-batch 8] [--max-wait-ms 10] [--device cuda]
-      [--alpha A] [--beta B] [--compile-cache DIR]
+      [--lm-path LM.arpa --alpha A --beta B] [--compile-cache DIR]
 
-Every flag of the JAX server parses. ``--alpha`` / ``--beta`` reach the
-engine (CLI > the checkpoint's ``decoding`` block > 0.5 / 0.0) for LM
-fusion, which is not ported yet; ``--compile-cache`` has no PyTorch
+Every flag of the JAX server parses. With ``--decoder beam``, ``--lm-path``
+fuses an ARPA n-gram LM into the beam search on the engine's device (a path
+that does not exist is logged and served without the LM, as the JAX server
+does); ``--alpha`` / ``--beta`` weigh it (CLI > the checkpoint's
+``decoding`` block > 0.5 / 0.0). ``--compile-cache`` has no PyTorch
 counterpart (the CUDA kernels are cached in ``ssd_tpu_torch/_build/`` by
 source hash) and is logged as unused.
 
@@ -247,7 +249,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--warmup-grid", action="store_true",
                    help="Warm up every (batch × length) bucket at startup.")
-    p.add_argument("--lm-path", type=Path, help="ARPA LM for fusion (beam only; not ported yet)")
+    p.add_argument("--lm-path", type=Path, help="ARPA LM for on-device fusion (beam only)")
     # None → the checkpoint config's decoding block, then 0.5 / 0.0
     p.add_argument("--alpha", type=float, default=None, help="LM weight (LM fusion only).")
     p.add_argument("--beta", type=float, default=None, help="Word bonus (LM fusion only).")

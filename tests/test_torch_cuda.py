@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels (log-mel, CTC α and β, fused
 attention and the depthwise stencil, forward and backward) against their
-plain PyTorch versions. They skip without a card. This file imports neither JAX nor
+plain PyTorch versions, and of the LM-fused beam search on the card against
+the CPU. They skip without a card. This file imports neither JAX nor
 ``ssd_tpu``, so it also runs on a card machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -296,3 +297,58 @@ def test_attention_and_depthwise_wrappers_reject_bad_cuda_input(cuda):
         dwc.DW_FWD(x, torch.zeros((4, 8), device=cuda), b)
     with pytest.raises(ValueError, match="K ≤"):
         dwc.DW_BWD(x, torch.zeros((33, 8), device=cuda), x)
+
+
+# ------------------------------------------------ LM-fused beam search
+
+
+@pytest.mark.parametrize("order,width,top_k", [(3, 16, None), (5, 50, 16)])
+def test_lm_search_on_the_card_matches_the_cpu(cuda, order, width, top_k):
+    """The packed table's lookups on the card are bit-equal to the CPU's on
+    every key and on misses (keys ≥ 2³¹ among them); the LM-fused search
+    waits for the device nowhere and decodes the CPU's text on decisive
+    log-probs, its final scores within 1e-4."""
+    from ssd_tpu_torch.data.vocab import default_vocab
+    from ssd_tpu_torch.decoding import device_lm as dl
+    from ssd_tpu_torch.decoding.lm import train_ngram
+
+    vocab = default_vocab()
+    texts = ["the cat sat on the mat", "a dog ran far away", "hello world", "the dog sat",
+             "she said the cat is here"]
+    table = dl.pack_lm(train_ngram(texts, order=order), vocab)
+    rng = np.random.default_rng(order)
+    miss = rng.integers(0, 1 << 32, (2, 4096), dtype=np.uint64).astype(np.int64)
+    k1 = torch.from_numpy(np.concatenate([table.keys1[table.used].astype(np.int64), miss[0]]))
+    k2 = torch.from_numpy(np.concatenate([table.keys2[table.used].astype(np.int64), miss[1]]))
+    want = dl._lookup(dl._packed_device_table(table, "cpu"), k1, k2)
+    got = dl._lookup(dl._packed_device_table(table, cuda), k1.to(cuda), k2.to(cuda))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[0].sum()) >= int(table.used.sum())
+
+    B, T = 4, 2 * max(len(t) for t in texts[:4])
+    logits = rng.normal(size=(B, T, vocab.size)).astype(np.float32)
+    logits[:, :, vocab.blank_id] += 1.0
+    for b, text in enumerate(texts[:4]):
+        for t, cid in enumerate(vocab.encode(text)):
+            logits[b, 2 * t, cid] += 8.0
+            logits[b, 2 * t + 1, vocab.blank_id] += 8.0
+    lp = torch.from_numpy(logits).log_softmax(-1)
+    lengths = torch.tensor([2 * len(t) for t in texts[:4]])
+    kw = dict(blank_id=vocab.blank_id, pad_id=vocab.pad_id, space_id=vocab.token_to_id[" "],
+              beam_width=width, alpha=0.8, beta=0.2, token_top_k=top_k)
+    lp_c, len_c = lp.to(cuda), lengths.to(cuda)
+    dl.beam_search_lm_device(lp_c, len_c, table, **kw)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside the search raises
+    try:
+        card = dl.beam_search_lm_device(lp_c, len_c, table, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu = dl.beam_search_lm_device(lp, lengths, table, **kw)
+    torch.testing.assert_close(card[2].cpu().sort(dim=1).values, cpu[2].sort(dim=1).values,
+                               atol=1e-4, rtol=0)
+    assert dl.beam_decode_lm_device(lp_c, len_c, vocab, table, beam_width=width,
+                                    alpha=0.8, beta=0.2, token_top_k=top_k) == texts[:4]
+    assert dl.beam_decode_lm_device(lp, lengths, vocab, table, beam_width=width, alpha=0.8,
+                                    beta=0.2, token_top_k=top_k) == texts[:4]

@@ -105,11 +105,16 @@ def test_missing_lm_path_warns_and_decodes(tmp_path, caplog):
     assert decode(lp, lengths) == plain
 
 
-def test_existing_lm_path_raises_naming_its_item(tmp_path):
+def test_empty_arpa_decodes_as_jax(tmp_path):
+    """An ARPA with no n-grams (every word scores −99): the LM-fused
+    decoder, device and host, decodes as the JAX factory's."""
     arpa = tmp_path / "lm.arpa"
     arpa.write_text("\\data\\\n")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tctc.build_decoder("beam", default_vocab(), lm_path=arpa)
+    lp, lengths = _log_probs(seed=2)
+    for host_lm in (False, True):
+        kw = dict(lm_path=arpa, beam_width=8, host_lm=host_lm)
+        want = jctc.build_decoder("beam", jax_default_vocab(), **kw)(jnp.asarray(lp), jnp.asarray(lengths))
+        assert tctc.build_decoder("beam", default_vocab(), **kw)(lp, lengths) == want
 
 
 # ------------------------------------------------------- evaluate_checkpoint
@@ -292,14 +297,10 @@ def test_cli_accepts_every_jax_eval_flag(monkeypatch, quiet):
     "argv,error,match",
     [(["--quantize", "int8"], NotImplementedError, "queue 1 item 9"),
      (["--quantize", "int8_prequant"], NotImplementedError, "queue 1 item 9"),
-     (["--data-parallel"], NotImplementedError, "queue 1 item 10"),
-     (["--decoder", "beam", "--lm-path", "EXISTING"], NotImplementedError, "queue 1 item 7")],
+     (["--data-parallel"], NotImplementedError, "queue 1 item 10")],
 )
 def test_cli_unported_options_raise(corpus, tmp_path, quiet, argv, error, match):
     _, root = corpus
-    arpa = tmp_path / "lm.arpa"
-    arpa.write_text("\\data\\\n")
-    argv = [str(arpa) if a == "EXISTING" else a for a in argv]
     with pytest.raises(error, match=match):
         teval.main(["--checkpoint", str(root / "torch_run" / "last"), "--device", "cpu",
                     "--output", str(tmp_path / "out")] + argv)

@@ -21,6 +21,7 @@ from ssd_tpu.models.ssd_model import build_model as jax_build_model
 from ssd_tpu.serving import engine as jeng
 from ssd_tpu.serving import server as jserver
 from ssd_tpu_torch.data.vocab import default_vocab
+from ssd_tpu_torch.decoding import ctc as tctc
 from ssd_tpu_torch.models.flax_bridge import state_dict_from_flax
 from ssd_tpu_torch.serving import engine as teng
 from ssd_tpu_torch.serving import server as tserver
@@ -179,10 +180,56 @@ def test_http_round_trip(weights, tmp_path):
 
 def test_engine_unported_options_raise(weights):
     _, _, sd = weights
-    for kw in ({"data_parallel": True}, {"quantize": "int8"},
-               {"decoder": "beam", "lm_path": "lm.arpa"}):
+    for kw in ({"data_parallel": True}, {"quantize": "int8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             teng.InferenceEngine(_cfg(), sd, default_vocab(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("where", ["argument", "config"])
+def test_missing_lm_path_warns_and_serves_without_the_lm(weights, tmp_path, caplog, where):
+    """A ``lm_path`` (constructor or the config's decoding block) that does
+    not exist is logged and served LM-free, as the JAX engine does."""
+    _, _, sd = weights
+    missing = tmp_path / "no_such.arpa"
+    cfg = _cfg()
+    kw = dict(decoder="beam", beam_width=8, device="cpu")
+    if where == "config":
+        cfg["decoding"]["lm_path"] = str(missing)
+    else:
+        kw["lm_path"] = missing
+    with caplog.at_level(logging.WARNING, logger=tctc.logger.name):
+        engine = teng.InferenceEngine(cfg, sd, default_vocab(), **kw)
+    assert any("WITHOUT LM" in r.getMessage() and str(missing) in r.getMessage()
+               for r in caplog.records)
+    assert not engine.has_lm
+    plain = teng.InferenceEngine(_cfg(), sd, default_vocab(), decoder="beam", beam_width=8,
+                                 device="cpu")
+    reqs = _requests(seed=4)
+    assert engine.transcribe(reqs) == plain.transcribe(reqs)
+
+
+def test_engine_lm_text_matches_jax(weights, tmp_path, monkeypatch):
+    """Beam with an ARPA LM (the config's ``alpha`` / ``beta``): the JAX
+    engine's text, on the same weights, LM and requests, through the LM
+    search once a transcribe; greedy engines load no table."""
+    from ssd_tpu_torch.decoding.lm import train_ngram
+
+    params, stats, sd = weights
+    arpa = tmp_path / "lm.arpa"
+    train_ngram(["the cat sat on a mat", "a dog ran far away", "hello world"], order=3).to_arpa(arpa)
+    cfg = _cfg()
+    cfg["decoding"].update(lm_path=str(arpa), alpha=1.2, beta=0.5)
+    j = jeng.InferenceEngine(cfg, params, stats, jax_default_vocab(), decoder="beam", beam_width=8)
+    t = teng.InferenceEngine(cfg, sd, default_vocab(), decoder="beam", beam_width=8, device="cpu")
+    assert t.has_lm and (t.alpha, t.beta) == (1.2, 0.5)
+    searched = []
+    search = tctc.beam_decode_lm_device
+    monkeypatch.setattr(tctc, "beam_decode_lm_device",
+                        lambda *a, **k: searched.append(k) or search(*a, **k))
+    reqs = _requests(seed=5)
+    assert t.transcribe(reqs) == j.transcribe(reqs)
+    assert [(k["alpha"], k["beta"], k["beam_width"]) for k in searched] == [(1.2, 0.5, 8)]
+    assert not teng.InferenceEngine(cfg, sd, default_vocab(), device="cpu").has_lm
 
 
 def test_cuda_engine_raises_without_a_card(weights):
