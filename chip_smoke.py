@@ -32,7 +32,8 @@ failing loudly:
              device="cuda")``, transcribing batches of 1, 4 and 8 requests
              with greedy and beam-50 decoding.
 4. server  — ``ssd_tpu_torch.serving.server`` in-process on a free port:
-             three ``/transcribe`` requests, ``/stream/start`` → 501.
+             three ``/transcribe`` requests, ``/stream/feed`` of an unknown
+             session → 404 (phase 14 streams through the server).
    Launch counts are zeroed before phase 3 and read after phase 4: the
    kernel must have launched exactly once per ``transcribe``. Then the
    card's log-probs are held against the same engine on the CPU, and the
@@ -139,6 +140,26 @@ failing loudly:
              search's profiler busy share; the eval CLI with ``--lm-path``
              on phase 7's cached checkpoint, ``--lm-backend device`` (beam
              50) and ``host`` (beam 8).
+14. streaming and export — phase 11b's fused/pallas checkpoint: (a)
+             ``ChunkedStreamingTranscriber`` on the card, a 5 000-sample
+             stream that fits one window (S 512) with text equal to
+             ``engine.transcribe`` and emitted log-probs within 2e-3 of the
+             offline forward's; a 12 000-sample stream in 100-sample feeds
+             at the default geometry (S 96, W 512, R 32: 640-frame windows,
+             T′ 320) with 1 log-mel, 6 attention- and 6 depthwise-forward
+             launches a window, held to the same stream on a CPU engine
+             (log-probs within 2e-3, text equal), each window timed on the
+             host clock after a sync and by CUDA events, each feed on the
+             host clock; the same stream through ``/stream/start`` →
+             ``/stream/feed`` → ``/stream/finish`` equal to the direct text,
+             the finished session → 404; 4 concurrent sessions equal to one
+             at a time. (b) ``export_checkpoint`` at buckets (1, 12 800) and
+             (8, 12 800): 1 / 6 / 6 custom-op nodes in each graph and
+             launches a call of the reloaded ``ExportedTranscriber``, its
+             tokens and texts equal to the engine's greedy decode, its call
+             p50 beside the eager ``engine.transcribe``'s. (c) each custom
+             op's host time a call beside its wrapper's alone. It prints its
+             sub-steps' seconds.
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
@@ -188,9 +209,12 @@ from ssd_tpu_torch.ops import ctc_loss as ctc
 from ssd_tpu_torch.ops import depthwise_conv as dwc
 from ssd_tpu_torch.ops import featurizer as feat
 from ssd_tpu_torch.ops import mel as melmod
-from ssd_tpu_torch.ops.ctc_decode import traceback
+from ssd_tpu_torch.ops.ctc_decode import greedy_decode, traceback
+from ssd_tpu_torch.serving import streaming
 from ssd_tpu_torch.serving.engine import InferenceEngine
+from ssd_tpu_torch.serving.export import ExportedTranscriber, export_checkpoint
 from ssd_tpu_torch.serving.server import encode_npy, serve
+from ssd_tpu_torch.serving.streaming import ChunkedStreamingTranscriber
 from ssd_tpu_torch.training import train as trainer
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from ssd_tpu_torch.training.schedules import build_optimizer
@@ -503,6 +527,15 @@ def post(port: int, path: str, payload: dict) -> dict:
         return json.load(r)
 
 
+def expect_http_error(port: int, path: str, payload: dict, code: int) -> None:
+    try:
+        post(port, path, payload)
+    except urllib.error.HTTPError as e:
+        check(e.code == code, f"{path} answered {e.code}, expected {code}")
+        return
+    raise SmokeFailure(f"{path} answered 200, expected {code}")
+
+
 def phase_main_path(ckpt: Path, rng: np.random.Generator, sizes=(1, 4, 8), per_call=None):
     """Phases 3 and 4 (and 11a), the counted run of the serving path: every
     ``transcribe`` must move each launch count by ``per_call`` exactly
@@ -537,11 +570,8 @@ def phase_main_path(ckpt: Path, rng: np.random.Generator, sizes=(1, 4, 8), per_c
             check(json.load(r)["status"] == "ok", "/healthz")
         served = [post(port, "/transcribe", {"emg": encode_npy(a)})["hypotheses"][0]
                   for a in server_reqs]
-        try:
-            post(port, "/stream/start", {})
-            raise SmokeFailure("/stream/start answered 200, expected 501")
-        except urllib.error.HTTPError as e:
-            check(e.code == 501, f"/stream/start answered {e.code}, expected 501")
+        expect_http_error(port, "/stream/feed", {"session": "s99999999", "emg": encode_npy(
+            server_reqs[0])}, 404)
     finally:
         server.shutdown()
         server.batcher.shutdown()
@@ -552,7 +582,8 @@ def phase_main_path(ckpt: Path, rng: np.random.Generator, sizes=(1, 4, 8), per_c
     n_calls = 2 * len(batches) + len(server_reqs)
     check(launches == {k: v * n_calls for k, v in per_call.items()},
           f"{n_calls} transcribes launched {launches}, expected {per_call} each")
-    print(f"[server] 3 /transcribe answered, /stream/start → 501; main path launches in "
+    print(f"[server] 3 /transcribe answered, /stream/feed of an unknown session → 404; main "
+          f"path launches in "
           f"{n_calls} transcribe calls: { {k: v for k, v in launches.items() if v} }")
     direct = [engines["greedy"].transcribe([a])[0] for a in server_reqs]
     check(served == direct, f"server {served} != engine {direct}")
@@ -1755,6 +1786,308 @@ def phase_lm(root: Path, fused_ckpt: Path, rng: np.random.Generator, card: str) 
     return launches
 
 
+# ------------------------------------------ streaming and export (phase 14)
+
+STREAM_SAMPLES = 12000  # the long stream: 13 windows at the default geometry
+STREAM_PIECE = 100  # samples a feed: 100 ms of signal at 1 kHz
+ONE_WINDOW_SAMPLES, ONE_WINDOW_CHUNK = 5000, 512  # 469 frames, one window with S = 512
+CONCURRENT_SAMPLES = 4000  # each of the 4 concurrent sessions: 4 windows
+STREAM_TOL = 2e-3  # emitted log-probs vs the offline forward and vs the CPU (as LOGPROB_TOL)
+EXPORT_BATCHES = (1, 8)
+EXPORT_RUNS = 20  # alternating exported / eager calls timed a batch size
+OVERHEAD_CALLS, OVERHEAD_REPS = 200, 5  # host enqueue time of the ops and their wrappers
+
+
+def stream_pieces(emg: np.ndarray) -> list:
+    return [emg[i : i + STREAM_PIECE] for i in range(0, len(emg), STREAM_PIECE)]
+
+
+def run_stream(engine: InferenceEngine, emg: np.ndarray, **geometry) -> tuple:
+    """Feed ``emg`` in 100-sample pieces and finish. Returns the transcriber,
+    its text, the emitted log-probs and the host milliseconds of the feeds
+    that ran no window and of those that ran one."""
+    st = ChunkedStreamingTranscriber(engine, **geometry)
+    feed_ms = ([], [])
+    for piece in stream_pieces(emg):
+        before = st.windows
+        t0 = time.perf_counter()
+        st.feed(piece)
+        feed_ms[st.windows > before].append((time.perf_counter() - t0) * 1e3)
+    text = st.finish()
+    return st, text, np.concatenate(st._log_probs), feed_ms
+
+
+@contextlib.contextmanager
+def timed_windows(host_ms: list, event_ms: list):
+    """Time every streaming window: on the host clock from a synchronize to
+    the end of the window's own device→host copy, and by CUDA events
+    around it."""
+    window = streaming.stream_window
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = window(*args, **kwargs)
+        end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+        return out
+
+    streaming.stream_window = timed
+    try:
+        yield
+    finally:
+        streaming.stream_window = window
+
+
+class Launches:
+    """The launches of a phase's gated runs: each run must move every count
+    by ``per_call`` × its calls (and no other count); ``total`` sums them."""
+
+    def __init__(self, per_call: dict):
+        self.per_call = {k: per_call.get(k, 0) for k in COUNTERS}
+        self.total = dict.fromkeys(COUNTERS, 0)
+
+    def add(self, what: str, before: dict, calls: int) -> None:
+        moved = {k: v - before[k] for k, v in counts().items()}
+        want = {k: v * calls for k, v in self.per_call.items()}
+        check(moved == want, f"{what}: launches moved {moved}, expected {want} ({calls} calls)")
+        for k, v in moved.items():
+            self.total[k] += v
+
+
+def stream_on_card(ckpt: Path, rng: np.random.Generator, launches: Launches, card: str,
+                   steps: dict) -> None:
+    """Phase 14a: chunked streaming on the card."""
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_checkpoint(ckpt, device="cuda")
+    hop = engine.feat_cfg.hop_length
+    emg = rng.normal(size=(ONE_WINDOW_SAMPLES, CHANNELS)).astype(np.float32)
+    before = counts()
+    st, text, lp, _ = run_stream(engine, emg, chunk_frames=ONE_WINDOW_CHUNK)
+    launches.add("the one-window stream", before, st.windows)
+    check(st.windows == 1, f"the one-window stream ran {st.windows} windows")
+    check(text == engine.transcribe([emg])[0], f"one-window stream {text!r} != offline transcribe")
+    off_lp, off_len = engine.forward([emg])
+    off_lp = off_lp[0, : int(off_len[0])].cpu()
+    check(tuple(off_lp.shape) == lp.shape, f"emitted {lp.shape} vs offline {tuple(off_lp.shape)}")
+    err_off = float((off_lp - torch.from_numpy(lp)).abs().max())
+    check(err_off <= STREAM_TOL, f"one-window stream vs offline log-probs: {err_off} > {STREAM_TOL}")
+    print(f"[stream] one window ({ONE_WINDOW_SAMPLES} samples, S {ONE_WINDOW_CHUNK}): text equal to "
+          f"engine.transcribe ({text[:30]!r}); {lp.shape[0]} emitted frames, max abs err vs the "
+          f"offline forward {err_off:.3e} (tol {STREAM_TOL})")
+    steps["one window"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    emg = rng.normal(size=(STREAM_SAMPLES, CHANNELS)).astype(np.float32)
+    host_ms, event_ms = [], []
+    before = counts()
+    with timed_windows(host_ms, event_ms):
+        st, text, lp, (idle_ms, window_ms) = run_stream(engine, emg)
+    launches.add("the long stream", before, st.windows)
+    check(st.windows == len(host_ms) >= 2, f"the long stream ran {st.windows} windows")
+    check(bool(np.isfinite(lp).all()) and lp.shape[1] == engine.vocab.size,
+          f"the long stream's log-probs: {lp.shape}, finite {np.isfinite(lp).all()}")
+    print(f"[stream] {STREAM_SAMPLES} samples in {STREAM_PIECE}-sample feeds at S {st.S}, W {st.W}, "
+          f"R {st.R} (Tw {st.Tw} frames, Lw {st.Lw} samples, T' {st.Tw // st.factor}): "
+          f"{st.windows} windows; a window p50 {np.percentile(host_ms, 50):.3f} ms host clock "
+          f"(sync, then to its device→host copy), {np.percentile(event_ms, 50):.3f} ms CUDA events; "
+          f"a feed p50 {np.percentile(idle_ms + window_ms, 50):.3f} ms over "
+          f"{len(idle_ms) + len(window_ms)} feeds ({len(window_ms)} that ran a window: p50 "
+          f"{np.percentile(window_ms, 50):.3f} ms; the others {np.percentile(idle_ms, 50):.3f} ms); "
+          f"algorithmic latency R·hop = {st.R * hop} ms; {card}")
+    steps["long stream"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu")
+    _, cpu_text, cpu_lp, _ = run_stream(cpu, emg)
+    check(cpu_lp.shape == lp.shape, f"card {lp.shape} vs CPU {cpu_lp.shape} emitted frames")
+    err_cpu = float(np.abs(cpu_lp - lp).max())
+    check(err_cpu <= STREAM_TOL, f"the long stream card vs CPU log-probs: {err_cpu} > {STREAM_TOL}")
+    check(text == cpu_text, f"the long stream's text card vs CPU: {text!r} vs {cpu_text!r}")
+    print(f"[stream] card vs CPU engine on the same weights: emitted log-probs max abs err "
+          f"{err_cpu:.3e} (tol {STREAM_TOL}); greedy text equal ({text[:30]!r})")
+    steps["cpu stream"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    server = serve(ckpt, port=0, host="127.0.0.1", warmup=False, device="cuda")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        before = counts()
+        sid = post(port, "/stream/start", {})["session"]
+        for piece in stream_pieces(emg):
+            post(port, "/stream/feed", {"session": sid, "emg": encode_npy(piece)})
+        served = post(port, "/stream/finish", {"session": sid})
+        launches.add("the stream through /stream/*", before, st.windows)
+        expect_http_error(port, "/stream/feed", {"session": sid, "emg": encode_npy(emg[:10])}, 404)
+    finally:
+        server.shutdown()
+        server.batcher.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "server thread did not stop")
+    check(served == {"hypothesis": text, "final": True},
+          f"/stream/finish {served} != the direct transcriber's {text!r}")
+    print(f"[stream] /stream/start → {len(stream_pieces(emg))} × /stream/feed → /stream/finish on "
+          f"the card: the direct transcriber's text; the finished session → 404")
+    steps["http"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    streams = [rng.normal(size=(CONCURRENT_SAMPLES, CHANNELS)).astype(np.float32) for _ in range(4)]
+    sequential = [run_stream(engine, e)[1:3] for e in streams]
+    results, errors = [None] * 4, []
+
+    def session(i):
+        try:
+            results[i] = run_stream(engine, streams[i])[1:3]
+        except Exception as exc:  # re-raised below, after every thread is joined
+            errors.append(exc)
+
+    threads = [threading.Thread(target=session, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    check(not any(t.is_alive() for t in threads), "a concurrent session did not end")
+    if errors:
+        raise errors[0]
+    errs = [float(np.abs(a[1] - b[1]).max()) for a, b in zip(results, sequential)]
+    check(all(a[0] == b[0] for a, b in zip(results, sequential)) and max(errs) <= 1e-5,
+          f"4 concurrent sessions vs one at a time: texts {[r[0][:20] for r in results]} vs "
+          f"{[r[0][:20] for r in sequential]}, log-prob errors {errs}")
+    print(f"[stream] 4 concurrent sessions on one engine ({CONCURRENT_SAMPLES} samples each): texts "
+          f"equal to one session at a time; log-probs bit-equal: "
+          f"{all(np.array_equal(a[1], b[1]) for a, b in zip(results, sequential))} (max abs err "
+          f"{max(errs):.3e}, gate 1e-5)")
+    steps["concurrent"] = time.perf_counter() - t0
+
+
+def export_on_card(ckpt: Path, out: Path, rng: np.random.Generator, launches: Launches,
+                   card: str, steps: dict) -> None:
+    """Phase 14b: the export artifact on the card."""
+    t0 = time.perf_counter()
+    export_checkpoint(ckpt, out, batch_sizes=EXPORT_BATCHES, sample_lengths=(BUCKET,),
+                      device="cuda")
+    manifest = json.loads((out / "manifest.json").read_text())
+    check(manifest["platforms"] == ["cuda"], f"manifest platforms {manifest['platforms']}")
+    L = encoder_key("num_layers")
+    for bucket in manifest["buckets"]:
+        nodes = [str(n.target) for n in torch.export.load(out / bucket["file"]).graph.nodes]
+        ops = {op: nodes.count(f"ssd_tpu_torch.{op}.default")
+               for op in ("logmel_core", "attention_fwd", "depthwise_fwd")}
+        check(ops == {"logmel_core": 1, "attention_fwd": L, "depthwise_fwd": L},
+              f"{bucket['file']}: custom-op nodes {ops}")
+        print(f"[export] {bucket['file']} (B {bucket['batch']}, {bucket['samples']} samples): "
+              f"exported and saved in {bucket['export_seconds']:.2f} s; custom-op nodes {ops}")
+    steps["export"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    artifact = ExportedTranscriber.load(out, device="cuda")
+    engine = InferenceEngine.from_checkpoint(ckpt, device="cuda")
+    vocab = engine.vocab
+    steps["load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for B in EXPORT_BATCHES:
+        # lengths past 4 × SAMPLE_BUCKET: the engine pads to the artifact's bucket
+        reqs = [rng.normal(size=(int(n), CHANNELS)).astype(np.float32)
+                for n in rng.integers(10300, BUCKET + 1, size=B)]
+        before = counts()
+        tokens, n_tok = artifact.call(reqs)
+        launches.add(f"the exported call at B={B}", before, 1)
+        lp, ol = engine.forward(reqs)
+        want_tokens, want_n = greedy_decode(lp, ol, blank_id=vocab.blank_id, pad_id=vocab.pad_id)
+        check(np.array_equal(n_tok, want_n[:B].cpu().numpy())
+              and np.array_equal(tokens, want_tokens[:B].cpu().numpy()),
+              f"exported tokens at B={B} differ from the engine's greedy decode")
+        texts = [vocab.decode(tokens[i, : n_tok[i]]) for i in range(B)]
+        check(texts == engine.transcribe(reqs), f"exported texts at B={B} != engine.transcribe")
+        runs = {"exported": [], "eager": []}
+        for _ in range(EXPORT_RUNS):  # alternating: both see the same host drift
+            for name, fn in (("exported", artifact.transcribe), ("eager", engine.transcribe)):
+                t1 = time.perf_counter()
+                fn(reqs)
+                runs[name].append((time.perf_counter() - t1) * 1e3)
+        p50 = {k: float(np.percentile(v, 50)) for k, v in runs.items()}
+        print(f"[export] B={B}: tokens and texts equal to the engine's greedy decode; a call p50 "
+              f"exported {p50['exported']:.3f} ms vs eager engine.transcribe {p50['eager']:.3f} ms "
+              f"({EXPORT_RUNS} alternating runs each, host clock, end to end; "
+              f"{p50['exported'] / B:.3f} vs {p50['eager'] / B:.3f} ms an utterance); {card}")
+    steps["exported calls"] = time.perf_counter() - t0
+
+
+def op_overhead(card: str, steps: dict) -> None:
+    """Phase 14c: the host time of one call of each custom op beside its
+    wrapper called directly, at the serving path's B = 1 shapes: what the
+    dispatcher adds to every eager forward."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = feat.FeaturizerConfig(**shipped_config()["features"]["emg"])
+    H, D, K = encoder_key("num_heads"), encoder_key("d_model"), encoder_key("depthwise_conv_kernel_size")
+    T = (cfg.frame_count(BUCKET) + 1) // 2  # T' of the bucket after the ×2 subsampler
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    emg = torch.randn((1, BUCKET, CHANNELS), generator=gen, device=dev)
+    qkv = torch.randn((3, 1, T, H, D // H), generator=gen, device=dev).transpose(2, 3)
+    mask = torch.ones((1, T), dtype=torch.int32, device=dev)
+    x = torch.randn((1, T, D), generator=gen, device=dev)
+    w, b = torch.randn((K, D), generator=gen, device=dev), torch.randn((D,), generator=gen, device=dev)
+    pairs = {
+        "logmel_core": (lambda: feat.LOGMEL(emg, cfg), lambda: feat.logmel_core(emg, cfg)),
+        "attention_fwd": (lambda: attn.ATTN_FWD(*qkv, mask, None),
+                          lambda: torch.ops.ssd_tpu_torch.attention_fwd(*qkv, mask, None)),
+        "depthwise_fwd": (lambda: dwc.DW_FWD(x, w, b),
+                          lambda: torch.ops.ssd_tpu_torch.depthwise_fwd(x, w, b)),
+    }
+
+    def host_us(fn) -> float:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(OVERHEAD_CALLS):
+            fn()
+        us = (time.perf_counter() - t1) / OVERHEAD_CALLS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    per_forward = 0.0
+    for name, (wrapper, op) in pairs.items():
+        for fn in (wrapper, op):
+            fn()
+        runs = {"wrapper": [], "op": []}
+        for _ in range(OVERHEAD_REPS):
+            runs["wrapper"].append(host_us(wrapper))
+            runs["op"].append(host_us(op))
+        med = {k: float(np.median(v)) for k, v in runs.items()}
+        extra = med["op"] - med["wrapper"]
+        per_forward += extra * (1 if name == "logmel_core" else encoder_key("num_layers"))
+        print(f"[ops] {name}: host {med['op']:.2f} µs a call through the custom op vs "
+              f"{med['wrapper']:.2f} µs through the wrapper alone: {extra:+.2f} µs of dispatch "
+              f"(medians of {OVERHEAD_REPS} × {OVERHEAD_CALLS} calls, enqueue only)")
+    print(f"[ops] the dispatch added to one fused/pallas forward (1 log-mel, "
+          f"{encoder_key('num_layers')} attention, {encoder_key('num_layers')} depthwise): "
+          f"{per_forward:+.2f} µs of host time; {card}")
+    steps["op overhead"] = time.perf_counter() - t0
+
+
+def phase_stream_export(root: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 14: streaming and the export artifact on the card, on phase
+    11b's fused/pallas checkpoint. Returns the launches of its gated runs."""
+    ckpt = root / "run_fused" / "last"
+    L = encoder_key("num_layers")
+    launches = Launches({"logmel": 1, "attention_fwd": L, "depthwise_fwd": L})
+    steps = {}
+    stream_on_card(ckpt, rng, launches, card, steps)
+    export_on_card(ckpt, root / "export", rng, launches, card, steps)
+    op_overhead(card, steps)
+    print("[stream/export] phase 14 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    print(f"[stream/export] launches of the gated runs: "
+          f"{ {k: v for k, v in launches.total.items() if v} }")
+    return launches.total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
@@ -1793,9 +2126,10 @@ def main() -> int:
         timed("fused train rate", phase_train_rate, rng, ctc_out["times"], new_out["times"], **FUSED)
         evaluated = timed("evaluate", phase_evaluate, train_dir, card)
         lm_served = timed("lm fusion", phase_lm, train_dir, run_dir / "fused" / "last", rng, card)
+        streamed = timed("streaming+export", phase_stream_export, train_dir, rng, card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    entry["launches"] += evaluated["logmel"] + lm_served["logmel"]
+    entry["launches"] += evaluated["logmel"] + lm_served["logmel"] + streamed["logmel"]
     kernels = [entry]
     for name in ("alpha", "beta"):
         e = ctc_out["entries"][name]
@@ -1803,8 +2137,9 @@ def main() -> int:
         kernels.append(e)
     for name in ("attention_fwd", "attention_bwd", "depthwise_fwd", "depthwise_bwd"):
         e = new_out["entries"][name]
-        # phase 11's two counted runs, phase 12's and phase 13's
-        e["launches"] = served[name] + trained[name] + evaluated[name] + lm_served[name]
+        # phase 11's two counted runs, phase 12's, 13's and 14's
+        e["launches"] = (served[name] + trained[name] + evaluated[name] + lm_served[name]
+                         + streamed[name])
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
     print(f"[time] total {sum(seconds.values()):.2f} s")

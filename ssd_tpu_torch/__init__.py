@@ -13,7 +13,11 @@ modules), among them the serving path, raw EMG → text:
 * ``models/`` — Conformer encoder, heads, ``build_model``, and
   ``flax_bridge.py`` to load the JAX package's weights;
 * ``ops/ctc_decode.py`` — greedy and prefix beam search on the device;
-* ``serving/`` — ``InferenceEngine`` and the micro-batched HTTP server;
+* ``serving/`` — ``InferenceEngine``, the micro-batched HTTP server,
+  chunked streaming (``streaming.py``, the ``/stream/*`` routes) and the
+  ``torch.export`` serving artifact (``export.py``), whose graphs hold the
+  serving kernels as the custom ops ``ssd_tpu_torch::logmel_core``,
+  ``::attention_fwd`` and ``::depthwise_fwd``;
 * ``training/checkpoint.py`` — the port's checkpoint format;
 * ``decoding/ctc.py`` and ``evaluation/`` — the decoder factory, WER / CER
   and the eval CLI.

@@ -16,7 +16,11 @@ heads (flax's ``broadcast_dropout``), and fed to both directions.
 Each direction dispatches on the device of its input: a CUDA tensor goes to
 the hand-written kernels of ``csrc/attention.cu`` (:data:`ATTN_FWD`,
 :data:`ATTN_BWD`), a CPU tensor to the plain versions
-:func:`fused_attention_plain` / :func:`fused_attention_bwd_plain`. There is
+:func:`fused_attention_plain` / :func:`fused_attention_bwd_plain`. The
+forward is the custom op ``ssd_tpu_torch::attention_fwd`` (PyTorch's
+dispatcher picks the device's implementation), so that a captured graph
+(``torch.export``) holds it as one node; the backward, which no exported
+graph reaches, dispatches in Python. There is
 no fall back and no size gate: the JAX package routes a T whose per-cell
 buffers overflow the TPU's VMEM (``fits_in_vmem``) to flax's attention;
 a flash-tiled CUDA kernel has no such limit, so every T reaches the kernel.
@@ -42,13 +46,22 @@ MAX_HEAD_DIM = 64  # the register tile's width in csrc/attention.cu (every confi
 # --------------------------------------------------------------------------
 
 
-def _weights(q: torch.Tensor, k: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-    """fp32 softmax of the masked, scaled scores (B, H, T, T)."""
+def _softmax_parts(q: torch.Tensor, k: torch.Tensor, key_mask: torch.Tensor) -> tuple:
+    """The masked, scaled scores' exponentials ``e = exp(s − m)`` (B, H, T, T)
+    with the row max ``m`` and the row sum ``l = Σ e`` (B, H, T, 1): what the
+    forward kernel keeps for the backward."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     s = s.masked_fill(key_mask[:, None, None, :] == 0, MASKED)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return e, m, e.sum(dim=-1, keepdim=True)
+
+
+def _weights(q: torch.Tensor, k: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    """fp32 softmax of the masked, scaled scores (B, H, T, T)."""
+    e, _, l = _softmax_parts(q, k, key_mask)
+    return e / l
 
 
 def fused_attention_plain(
@@ -202,17 +215,44 @@ ATTN_FWD = AttentionFwdKernel()
 ATTN_BWD = AttentionBwdKernel()
 
 
+# --------------------------------------------------------------------------
+# The forward as a custom op: opaque to graph capture, one schema on both
+# devices (the CPU version computes the row statistics the kernel stores)
+# --------------------------------------------------------------------------
+
+
+@torch.library.custom_op(
+    "ssd_tpu_torch::attention_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor key_mask, Tensor? mult) "
+           "-> (Tensor, Tensor, Tensor)",
+)
+def _attention_fwd_op(q, k, v, key_mask, mult):
+    e, m, l = _softmax_parts(q, k, key_mask)
+    w = e / l
+    out = _empty_like_heads(q)
+    out.copy_(torch.matmul(w if mult is None else w * mult, v))
+    return out, m[..., 0], l[..., 0]
+
+
+@_attention_fwd_op.register_kernel("cuda")
+def _attention_fwd_cuda(q, k, v, key_mask, mult):
+    return ATTN_FWD(q, k, v, key_mask, mult)
+
+
+@_attention_fwd_op.register_fake
+def _attention_fwd_fake(q, k, v, key_mask, mult):
+    B, H, T, hd = q.shape
+    row_max = q.new_empty((B, H, T), dtype=torch.float32)
+    return _empty_like_heads(q), row_max, torch.empty_like(row_max)
+
+
 class _FusedAttention(torch.autograd.Function):
     """``_fused_attn``'s custom VJP. On the card it saves q, k, v, out and the
     row statistics — no (T, T) tensor."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, mult):
-        if q.device.type == "cpu":
-            out = fused_attention_plain(q, k, v, key_mask, mult)
-            row_max = row_sum = None
-        else:
-            out, row_max, row_sum = ATTN_FWD(q, k, v, key_mask, mult)
+        out, row_max, row_sum = torch.ops.ssd_tpu_torch.attention_fwd(q, k, v, key_mask, mult)
         ctx.save_for_backward(q, k, v, out, row_max, row_sum, key_mask, mult)
         return out
 

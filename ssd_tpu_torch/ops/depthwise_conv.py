@@ -14,8 +14,11 @@ time) — on the card a row of the backward kernel's partials, on the CPU
 of its input: a CUDA tensor goes to the hand-written kernels of
 ``csrc/depthwise_conv.cu`` (:data:`DW_FWD`, :data:`DW_BWD`), a CPU tensor to
 the plain versions :func:`depthwise_conv1d_plain` /
-:func:`depthwise_conv1d_bwd_plain`. There is no fall back: a CUDA tensor
-reaches the kernel or raises.
+:func:`depthwise_conv1d_bwd_plain`. The forward is the custom op
+``ssd_tpu_torch::depthwise_fwd`` (PyTorch's dispatcher picks the device's
+implementation), so that a captured graph (``torch.export``) holds it as one
+node; the backward, which no exported graph reaches, dispatches in Python.
+There is no fall back: a CUDA tensor reaches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -153,15 +156,37 @@ DW_FWD = DepthwiseFwdKernel()
 DW_BWD = DepthwiseBwdKernel()
 
 
+# --------------------------------------------------------------------------
+# The forward as a custom op: opaque to graph capture, one schema on both
+# devices
+# --------------------------------------------------------------------------
+
+
+@torch.library.custom_op(
+    "ssd_tpu_torch::depthwise_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w, Tensor b) -> Tensor",
+)
+def _depthwise_fwd_op(x, w, b):
+    return depthwise_conv1d_plain(x, w, b)
+
+
+@_depthwise_fwd_op.register_kernel("cuda")
+def _depthwise_fwd_cuda(x, w, b):
+    return DW_FWD(x, w, b)
+
+
+@_depthwise_fwd_op.register_fake
+def _depthwise_fwd_fake(x, w, b):
+    return torch.empty_like(x)
+
+
 class _DepthwiseConv1d(torch.autograd.Function):
     """``depthwise_conv1d``'s custom VJP (``_dw_fwd`` / ``_dw_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, w, b):
         ctx.save_for_backward(x, w)
-        if x.device.type == "cpu":
-            return depthwise_conv1d_plain(x, w, b)
-        return DW_FWD(x, w, b)
+        return torch.ops.ssd_tpu_torch.depthwise_fwd(x, w, b)
 
     @staticmethod
     def backward(ctx, g):

@@ -5,8 +5,10 @@ Slaney mel filterbank → ``10·log10(max(x, 1e-10))`` → per-channel 80 dB
 clip over the valid frames → ``(frames, channels, n_mels)`` → per-file
 z-normalization with ``std + 1e-8``.
 
-The frame → mel → log core (:func:`logmel_core`) dispatches on the device
-of its input: a CUDA tensor goes to the hand-written kernel in
+The frame → mel → log core (:func:`logmel_core`) is the custom op
+``ssd_tpu_torch::logmel_core``, so that a captured graph (``torch.export``)
+holds it as one node; PyTorch's dispatcher picks the implementation by the
+device of its input: a CUDA tensor goes to the hand-written kernel in
 ``csrc/logmel.cu`` (the counterpart of the Pallas ``_fused_kernel``; a
 shared-memory FFT with a banded mel projection, planned on the host by
 :func:`fft_radices`, :func:`fft_twiddles` and :func:`mel_bands`), a CPU
@@ -127,15 +129,20 @@ def normalize_logmels(
 
 
 def logmel_core(emg: torch.Tensor, cfg: FeaturizerConfig) -> torch.Tensor:
-    """(B, L, C) → (B, C, T, M) un-clipped log-mel.
+    """(B, L, C) → (B, C, T, M) un-clipped log-mel, through the custom op
+    ``ssd_tpu_torch::logmel_core``: the dispatcher sends a CUDA tensor to the
+    :data:`LOGMEL` kernel and a CPU tensor to :func:`logmel_core_plain`."""
+    return torch.ops.ssd_tpu_torch.logmel_core(emg, *_core_fields(cfg))
 
-    CUDA tensor → :data:`LOGMEL` kernel; CPU tensor → :func:`logmel_core_plain`.
-    """
-    if emg.device.type == "cpu":
-        return logmel_core_plain(emg, cfg)
-    if emg.device.type != "cuda":
-        raise ValueError(f"logmel_core: unsupported device {emg.device}")
-    return LOGMEL(emg, cfg)
+
+def _core_fields(cfg: FeaturizerConfig) -> tuple:
+    """The config's fields the core reads, as the op's scalar arguments."""
+    return cfg.sample_rate, cfg.n_fft, cfg.hop_length, cfg.n_mels, cfg.fmin, cfg.fmax
+
+
+def _core_cfg(sample_rate: int, n_fft: int, hop_length: int, n_mels: int, fmin: float,
+              fmax: Optional[float]) -> FeaturizerConfig:
+    return FeaturizerConfig(sample_rate, n_fft, hop_length, n_mels, fmin, fmax)
 
 
 # --------------------------------------------------------------------------
@@ -361,3 +368,34 @@ class LogmelKernel(CudaKernel):
 
 
 LOGMEL = LogmelKernel()
+
+
+# --------------------------------------------------------------------------
+# The core as a custom op: opaque to graph capture (torch.export keeps one
+# node where tracing the Python would bake the CPU version in or launch the
+# kernel on fake tensors), one schema on both devices
+# --------------------------------------------------------------------------
+
+
+@torch.library.custom_op(
+    "ssd_tpu_torch::logmel_core", mutates_args=(), device_types="cpu",
+    schema="(Tensor emg, int sample_rate, int n_fft, int hop_length, int n_mels, float fmin, "
+           "float? fmax) -> Tensor",
+)
+def _logmel_core_op(emg, *fields):
+    return logmel_core_plain(emg, _core_cfg(*fields))
+
+
+@_logmel_core_op.register_kernel("cuda")
+def _logmel_core_cuda(emg, *fields):
+    return LOGMEL(emg, _core_cfg(*fields))
+
+
+@_logmel_core_op.register_fake
+def _logmel_core_fake(emg, *fields):
+    cfg = _core_cfg(*fields)
+    B, L, C = emg.shape
+    T = cfg.frame_count(L)
+    if T <= 0:
+        raise ValueError(f"padded length {L} shorter than n_fft={cfg.n_fft}")
+    return emg.new_empty((B, C, T, cfg.n_mels), dtype=torch.float32)

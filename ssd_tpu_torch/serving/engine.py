@@ -178,16 +178,33 @@ class InferenceEngine:
         )
         return batch, pad_lengths
 
+    def pipeline(
+        self, emg: torch.Tensor, sample_lengths: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device tensors in, device tensors out (the JAX engine's
+        ``_pipeline_impl``): raw ``(B, L, C)`` EMG and ``(B,)`` valid sample
+        counts → ``(log_probs (B, T', V), out_lengths (B,))``. :meth:`forward`
+        and the exported artifact (``serving/export.py``) run it whole; the
+        streaming window (``serving/streaming.py``) featurizes with its own
+        running z-norm and runs :meth:`encode`."""
+        feats, frame_lengths, _, _ = logmel_batch(emg, sample_lengths, self.feat_cfg)
+        return self.encode(feats, frame_lengths)
+
+    def encode(
+        self, feats: torch.Tensor, frame_lengths: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Features ``(B, T, C, M)`` → ``(log_probs, out_lengths)``: the
+        encoder and the CTC head."""
+        B, T, C, M = feats.shape
+        return self.model.ctc_log_probs(feats.reshape(B, T, C * M), frame_lengths)
+
     @torch.inference_mode()
     def forward(self, emg_arrays: Sequence[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Raw arrays → ``(log_probs (B_pad, T', V), out_lengths (B_pad,))``
         on the engine's device, for the whole padded batch."""
         batch, pad_lengths = self._pad(emg_arrays)
         emg = torch.from_numpy(batch).to(self.device)
-        lens = torch.from_numpy(pad_lengths).to(self.device)
-        feats, frame_lengths, _, _ = logmel_batch(emg, lens, self.feat_cfg)
-        B, T, C, M = feats.shape
-        return self.model.ctc_log_probs(feats.reshape(B, T, C * M), frame_lengths)
+        return self.pipeline(emg, torch.from_numpy(pad_lengths).to(self.device))
 
     @torch.inference_mode()
     def decode(

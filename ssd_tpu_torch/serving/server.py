@@ -17,14 +17,22 @@ Endpoints (same JSON and base64-npy contract as the JAX server):
   POST /transcribe     body: {"emg": <base64 of a float32 .npy (samples, C)>}
                        or    {"emg_list": [<base64 npy>, …]}
                        → {"hypotheses": ["text", …], "latency_ms": …}
-  POST /stream/*       HTTP 501: chunked streaming is not ported yet
-                       (ROADMAP.md queue 1 item 6)
+  POST /stream/start   body: {} or {"chunk_frames", "left_context_frames",
+                       "right_context_frames", "blank_bias"} → {"session": id}
+  POST /stream/feed    body: {"session": id, "emg": <base64 npy (n, C)>}
+                       → {"hypothesis": "text so far", "final": false}
+  POST /stream/finish  body: {"session": id, "beam": false}
+                       → {"hypothesis": "text", "final": true}
+                       (chunked bounded-recompute streaming,
+                       ``serving/streaming.py``; an unknown or expired
+                       session is 404, a malformed body 400)
   GET  /healthz        → {"status": "ok"}
   GET  /stats          → per-utterance latency percentiles
 
 Single requests are micro-batched: a collector thread drains the queue up to
 ``max_batch`` items or ``max_wait_ms``, whichever first, and runs one device
-call.
+call. Stream sessions idle for 600 s are evicted, never while a feed or
+finish holds the session.
 """
 
 from __future__ import annotations
@@ -44,12 +52,9 @@ from typing import List, Optional
 import numpy as np
 
 from ssd_tpu_torch.serving.engine import InferenceEngine
+from ssd_tpu_torch.serving.streaming import ChunkedStreamingTranscriber
 
 logger = logging.getLogger(__name__)
-
-_STREAM_NOT_PORTED = (
-    "streaming sessions are not ported to ssd_tpu_torch yet (ROADMAP.md queue 1 item 6)"
-)
 
 
 def _decode_npy(b64: str) -> np.ndarray:
@@ -144,7 +149,77 @@ class MicroBatcher:
                 r.event.set()
 
 
+class UnknownSession(KeyError):
+    """Stream session id is unknown or expired (HTTP 404, not 400)."""
+
+
+class StreamSessions:
+    """Registry of chunked streaming sessions on one engine."""
+
+    def __init__(self, engine: InferenceEngine, idle_ttl_sec: float = 600.0):
+        self.engine = engine
+        self.idle_ttl = idle_ttl_sec
+        self._sessions: dict = {}  # id → [transcriber, its lock, last use]
+        self._lock = threading.Lock()
+        self._counter = 0
+
+    def start(self, **kwargs) -> str:
+        st = ChunkedStreamingTranscriber(self.engine, **kwargs)
+        with self._lock:
+            self._counter += 1
+            sid = f"s{self._counter:08d}"
+            self._sessions[sid] = [st, threading.Lock(), time.monotonic()]
+            self._evict_idle()
+        return sid
+
+    def _evict_idle(self) -> None:
+        now = time.monotonic()
+        for sid in [
+            s for s, v in self._sessions.items()
+            # a held session lock is a feed or finish in flight: never evict
+            # it, however old its timestamp
+            if now - v[2] > self.idle_ttl and not v[1].locked()
+        ]:
+            del self._sessions[sid]
+
+    def _get(self, sid: str) -> list:
+        with self._lock:
+            # evict here too: a server that receives no NEW streams still
+            # reclaims sessions abandoned without /stream/finish
+            self._evict_idle()
+            entry = self._sessions.get(sid)
+            if entry is None:
+                raise UnknownSession(f"unknown or expired session {sid!r}")
+            entry[2] = time.monotonic()
+            return entry
+
+    def feed(self, sid: str, emg: np.ndarray) -> str:
+        entry = self._get(sid)
+        st, lock, _ = entry
+        with lock:
+            st.feed(emg)
+            hyp = st.hypothesis
+            # the idle clock starts when the feed ENDS, written while the
+            # session lock is held: after the release a stale timestamp on
+            # an unlocked session is what _evict_idle reclaims
+            entry[2] = time.monotonic()
+        return hyp
+
+    def finish(self, sid: str, beam: bool = False) -> str:
+        st, lock, _ = self._get(sid)
+        with lock:
+            hyp = st.finish(beam=beam)
+        with self._lock:
+            self._sessions.pop(sid, None)
+        return hyp
+
+
+_STREAM_INT_KEYS = ("chunk_frames", "left_context_frames", "right_context_frames")
+
+
 def make_handler(batcher: MicroBatcher, engine: InferenceEngine):
+    sessions = StreamSessions(engine)
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet
             logger.debug(fmt, *args)
@@ -183,10 +258,21 @@ def make_handler(batcher: MicroBatcher, engine: InferenceEngine):
                         200,
                         {"hypotheses": hyps, "latency_ms": (time.perf_counter() - t0) * 1e3},
                     )
-                elif self.path.startswith("/stream/"):
-                    self._reply(501, {"error": _STREAM_NOT_PORTED})
+                elif self.path == "/stream/start":
+                    kwargs = {k: int(payload[k]) for k in _STREAM_INT_KEYS if k in payload}
+                    if "blank_bias" in payload:
+                        kwargs["blank_bias"] = float(payload["blank_bias"])
+                    self._reply(200, {"session": sessions.start(**kwargs)})
+                elif self.path == "/stream/feed":
+                    hyp = sessions.feed(payload["session"], _decode_npy(payload["emg"]))
+                    self._reply(200, {"hypothesis": hyp, "final": False})
+                elif self.path == "/stream/finish":
+                    hyp = sessions.finish(payload["session"], beam=bool(payload.get("beam", False)))
+                    self._reply(200, {"hypothesis": hyp, "final": True})
                 else:
                     self._reply(404, {"error": "not found"})
+            except UnknownSession as exc:
+                self._reply(404, {"error": str(exc)})
             except (KeyError, ValueError, TypeError) as exc:
                 # malformed request body (missing fields, bad base64/npy,
                 # wrong types) — the caller's fault

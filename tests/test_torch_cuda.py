@@ -352,3 +352,48 @@ def test_lm_search_on_the_card_matches_the_cpu(cuda, order, width, top_k):
                                     alpha=0.8, beta=0.2, token_top_k=top_k) == texts[:4]
     assert dl.beam_decode_lm_device(lp, lengths, vocab, table, beam_width=width, alpha=0.8,
                                     beta=0.2, token_top_k=top_k) == texts[:4]
+
+
+# ------------------------------------------------ the export artifact
+
+
+def test_exported_bucket_runs_the_kernels(cuda, tmp_path):
+    """A full-width ``configs/tpu_fast_plus.yaml`` checkpoint under
+    ``attention_impl: fused`` / ``depthwise_impl: pallas`` exported on the
+    card: its graph holds the three custom ops (1 log-mel, one attention
+    and one depthwise forward a block), every call of the reloaded program
+    launches the kernels that often, and its text is the engine's."""
+    from pathlib import Path
+
+    from ssd_tpu_torch.data.vocab import default_vocab
+    from ssd_tpu_torch.models.conformer import init_flax_style
+    from ssd_tpu_torch.models.ssd_model import build_model
+    from ssd_tpu_torch.serving.engine import InferenceEngine
+    from ssd_tpu_torch.serving.export import ExportedTranscriber, export_checkpoint
+    from ssd_tpu_torch.training.checkpoint import save_checkpoint
+    from ssd_tpu_torch.utils.config import load_config
+
+    shipped = load_config(Path(__file__).resolve().parents[1] / "configs" / "tpu_fast_plus.yaml")
+    shipped["model"]["encoder"].update(attention_impl="fused", depthwise_impl="pallas")
+    default_vocab().to_json(tmp_path / "vocab.json")
+    cfg = {"data": {"vocab": str(tmp_path / "vocab.json")}, "features": shipped["features"],
+           "model": shipped["model"]}
+    enc = cfg["model"]["encoder"]
+    model = build_model(cfg, input_dim=enc["input_dim"], vocab_size=48)
+    init_flax_style(model, torch.Generator().manual_seed(0))
+    save_checkpoint(tmp_path / "run", model.state_dict(), cfg)
+    ckpt = tmp_path / "run" / "last"
+    out = export_checkpoint(ckpt, tmp_path / "artifact", batch_sizes=(1,),
+                            sample_lengths=(2560,), device="cuda")
+    nodes = [str(n.target) for n in torch.export.load(out / "fn_b1_l2560.pt2").graph.nodes]
+    L = enc["num_layers"]
+    assert [nodes.count(f"ssd_tpu_torch.{op}.default")
+            for op in ("logmel_core", "attention_fwd", "depthwise_fwd")] == [1, L, L]
+    t = ExportedTranscriber.load(out, device="cuda")
+    emg = [np.random.default_rng(1).normal(size=(2000, 8)).astype(np.float32)]
+    kernels = (feat.LOGMEL, attn.ATTN_FWD, dwc.DW_FWD)
+    for _ in range(2):
+        before = [k.launches for k in kernels]
+        text = t.transcribe(emg)
+        assert [k.launches - b for k, b in zip(kernels, before)] == [1, L, L]
+    assert text == InferenceEngine.from_checkpoint(ckpt, device="cuda").transcribe(emg)

@@ -1,6 +1,7 @@
 """Port parity: ``ssd_tpu_torch.serving`` against the JAX ``InferenceEngine``
 on the same raw EMG and weights, the port's checkpoint round trip, its HTTP
-front end, and its refusal to fall back to the CPU."""
+front end (stream sessions included), and its refusal to fall back to the
+CPU."""
 
 import argparse
 import json
@@ -26,6 +27,7 @@ from ssd_tpu_torch.models.flax_bridge import state_dict_from_flax
 from ssd_tpu_torch.serving import engine as teng
 from ssd_tpu_torch.serving import server as tserver
 from ssd_tpu_torch.serving.server import encode_npy, serve
+from ssd_tpu_torch.serving.streaming import ChunkedStreamingTranscriber
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 
 torch.set_num_threads(1)
@@ -162,8 +164,21 @@ def test_http_round_trip(weights, tmp_path):
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as r:
             stats = json.load(r)
         assert stats["latency"]["count"] == 4 and stats["micro_batch"]["items"] == 1
+        # a chunked stream session: start → feed × n → finish, the text of
+        # the transcriber driven directly
+        geometry = dict(chunk_frames=16, left_context_frames=32, right_context_frames=16)
+        sid = post("/stream/start", geometry)["session"]
+        direct = ChunkedStreamingTranscriber(engine, **geometry)
+        for i in range(0, 700, 100):
+            out = post("/stream/feed", {"session": sid, "emg": encode_npy(reqs[0][i : i + 100])})
+            direct.feed(reqs[0][i : i + 100])
+            assert out == {"hypothesis": direct.hypothesis, "final": False}
+        out = post("/stream/finish", {"session": sid})
+        assert out == {"hypothesis": direct.finish(), "final": True}
         for path, payload, code in [
-            ("/stream/start", {}, 501),
+            ("/stream/feed", {"session": sid, "emg": encode_npy(reqs[0])}, 404),  # finished
+            ("/stream/finish", {"session": "s99999999"}, 404),
+            ("/stream/feed", {"session": post("/stream/start", {})["session"]}, 400),
             ("/transcribe", {"wrong_field": 1}, 400),
             ("/transcribe", {"emg": "not-base64!!"}, 400),
         ]:
