@@ -10,7 +10,8 @@ together). Imports nothing of JAX or of the JAX package. Phases, each
 failing loudly:
 
 1. build   — compile ``csrc/logmel.cu``, ``csrc/ctc.cu``,
-             ``csrc/attention.cu`` and ``csrc/depthwise_conv.cu`` for sm_90a;
+             ``csrc/attention.cu`` and ``csrc/depthwise_conv.cu`` (with the
+             attention and depthwise kernels' bf16 instances) for sm_90a;
              print the build times, ptxas's registers and spills per kernel,
              the card's name and power limit, and PyTorch's TF32 settings
              (off for matmuls and cuDNN for the whole run: the parity phases
@@ -160,9 +161,42 @@ failing loudly:
              p50 beside the eager ``engine.transcribe``'s. (c) each custom
              op's host time a call beside its wrapper's alone. It prints its
              sub-steps' seconds.
+15. tpu_scaled_large in bf16 — ``configs/tpu_scaled_large.yaml`` through
+             the port's YAML reader (d_model 768, 12 blocks, 12 heads of hd
+             64, ffn 3 072, 166 M parameters, ``compute_dtype: bfloat16``,
+             ``remat``, ``scan_layers``, raw EMG, bf16 teacher features),
+             cut only in its ``parallel:`` section (one device), random
+             seeded weights, depth not cut: (a) the bf16 instances of the
+             attention and depthwise kernels against their plain bf16
+             versions at B = 32, T′ 384 (dropout multiplier) and B = 8, T′
+             625 (H 12, hd 64, C 768, K 15): the depthwise forward and dx
+             bit-equal, dw / db within 1e-4 and attention out / dq / dk /
+             dv within 2⁻⁶ of each output's largest; times beside SDPA's
+             bf16 efficient backend and a bf16 ``F.conv1d``; bounds at the
+             dense bf16 tensor-core peak; (b) served in both configurations
+             (as shipped, and ``attention_impl: fused`` + ``depthwise_impl:
+             pallas``) through phase 3/4's counted run at B = 1 and 8
+             (greedy, beam-50, three ``/transcribe``; 1 log-mel and, fused,
+             12 bf16 attention- and 12 depthwise-forward launches a call),
+             card log-probs held to the CPU engine's and a one-window
+             stream's to the offline forward within a bf16 tolerance with
+             greedy tokens equal on decisive frames, an exported call
+             (fused) with the engine's tokens, greedy p50; (c) trained by
+             ``train_from_config`` on a synthetic raw-EMG corpus (2 steps of
+             B = 32 on 768-frame buckets, 1 eval step; with remat the
+             forward kernels launch twice a train step) and the fused
+             checkpoint scored by the eval CLI; (d) step p50, device busy
+             and peak memory with remat and without, and (fused) every
+             gradient and running statistic with remat ``full`` and
+             ``dots`` bit-equal to the step without, dropout 0.1; (e) a
+             card-vs-CPU bf16 step at full width, depth cut to 2 blocks,
+             B = 2. It prints its sub-steps' seconds.
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
+
+The bf16 instances' entries of the kernels line are phase 15's (at B = 32,
+T′ 384), their launches its counted runs'.
 
 The last three lines of standard output are the kernel JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``. Any failure
@@ -194,6 +228,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ssd_tpu_torch.data.dataset import bf16_bits
 from ssd_tpu_torch.data.index_dataset import save_index
 from ssd_tpu_torch.data.vocab import Vocab, default_vocab
 from ssd_tpu_torch.decoding import build_char_lm
@@ -364,17 +399,19 @@ def phase_build() -> str:
         print(f"[build] {name}: {how} ({lib.library_path().name})")
         kernel = ""
         for line in lib.build_log.splitlines():
-            entry = re.search(r"Compiling entry function '\S*?\d([a-z][a-z_]*_kernel)(I(?:L[bi]\d+E)+E)?",
-                              line)
+            entry = re.search(r"Compiling entry function '\S*?\d([a-z][a-z_]*(?:_bf16)?_kernel)"
+                              r"(I(?:f|13__nv_bfloat16|L[bi]\d+E)+E)?", line)
             if entry:
                 kernel = entry.group(1)
-                args = re.findall(r"L([bi])(\d+)E", entry.group(2) or "")
+                args = re.findall(r"(f|13__nv_bfloat16|L[bi]\d+E)", entry.group(2) or "")
+                args = [{"f": "float", "13__nv_bfloat16": "bf16"}.get(a) or
+                        (a[2:-1] if a[1] == "i" else ("true" if a[2] == "1" else "false"))
+                        for a in args]
                 if kernel.startswith("attn_") and args:  # <16-byte staging, k-steps>
-                    kernel += (f"<{'16' if args[0][1] == '1' else '4'}-byte staging, "
-                               f"{args[1][1]} k-steps>")
-                elif args:  # ctc.cu's <J, β>, depthwise_conv.cu's <KMAX, 16-byte copies>
-                    kernel += "<" + ", ".join(v if t == "i" else ("true" if v == "1" else "false")
-                                              for t, v in args) + ">"
+                    kernel += (f"<{'16' if args[0] == 'true' else '4'}-byte staging, "
+                               f"{args[1]} {'16-deep ' if 'bf16' in kernel else ''}k-steps>")
+                elif args:  # ctc.cu's <J, β>, depthwise_conv.cu's <type, KMAX, 16-byte copies>
+                    kernel += "<" + ", ".join(args) + ">"
             if "registers" in line or "spill" in line:
                 print(f"[build] ptxas {name} {kernel}: {line.strip()}")
     card = card_line()
@@ -659,7 +696,9 @@ TRAIN_STAT_ATOL = 1e-5
 
 COUNTERS = {"logmel": feat.LOGMEL, "ctc_alpha": ctc.CTC_ALPHA, "ctc_beta": ctc.CTC_BETA,
             "attention_fwd": attn.ATTN_FWD, "attention_bwd": attn.ATTN_BWD,
-            "depthwise_fwd": dwc.DW_FWD, "depthwise_bwd": dwc.DW_BWD}
+            "depthwise_fwd": dwc.DW_FWD, "depthwise_bwd": dwc.DW_BWD,
+            "attention_fwd_bf16": attn.ATTN_FWD_BF16, "attention_bwd_bf16": attn.ATTN_BWD_BF16,
+            "depthwise_fwd_bf16": dwc.DW_FWD_BF16, "depthwise_bwd_bf16": dwc.DW_BWD_BF16}
 
 
 def reset_counts() -> None:
@@ -1104,12 +1143,13 @@ TILE_DW_FWD_MS = {"serving": 0.0095, "config": 0.0071, "flagship": 0.0191}
 DW_FWD_GATE = {"serving": 1.0, "config": 1.0, "flagship": 1.25}
 
 
-def sdpa_bias(mask: torch.Tensor, heads: int) -> torch.Tensor:
-    """The additive key mask (0 or −1e30) as the raw efficient-attention ops
-    take it, prepared as SDPA's front end prepares it: the key dimension
-    padded to a multiple of 16 and sliced back, expanded to (B, H, T, T)."""
+def sdpa_bias(mask: torch.Tensor, heads: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The additive key mask (0 or −1e30) in ``dtype`` as the raw
+    efficient-attention ops take it, prepared as SDPA's front end prepares
+    it: the key dimension padded to a multiple of 16 and sliced back,
+    expanded to (B, H, T, T)."""
     B, T = mask.shape
-    additive = torch.where(mask != 0, 0.0, -1e30)
+    additive = torch.where(mask != 0, 0.0, -1e30).to(dtype)
     additive = F.pad(additive, (0, 16 - T % 16))[:, :T]
     return additive[:, None, None, :].expand(B, heads, T, T)
 
@@ -1371,9 +1411,10 @@ def phase_fused_train(root: Path, rng: np.random.Generator) -> dict:
     c = counts()
     n_train, n_eval = check_epoch(summary["history"][0], "fused")
     check(n_train == 2 and n_eval == 2, f"fused: {n_train} train / {n_eval} eval steps")
-    want = {"logmel": 0, "ctc_alpha": n_train + n_eval, "ctc_beta": n_train,
-            "attention_fwd": L * (n_train + n_eval), "depthwise_fwd": L * (n_train + n_eval),
-            "attention_bwd": L * n_train, "depthwise_bwd": L * n_train}
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(ctc_alpha=n_train + n_eval, ctc_beta=n_train,
+                attention_fwd=L * (n_train + n_eval), depthwise_fwd=L * (n_train + n_eval),
+                attention_bwd=L * n_train, depthwise_bwd=L * n_train)
     check(c == want, f"fused training launched {c}, expected {want}")
     h = summary["history"][0]
     print(f"[fused-train] 1 epoch, {n_train} train + {n_eval} eval steps in "
@@ -2088,6 +2129,648 @@ def phase_stream_export(root: Path, rng: np.random.Generator, card: str) -> dict
     return launches.total
 
 
+# ------------------------------------- tpu_scaled_large in bf16 (phase 15)
+
+LARGE_PATH = CONFIG_PATH.parent / "tpu_scaled_large.yaml"
+# the config's batch on 768-frame buckets (T' 384, raw samples in (6 400,
+# 7 680]); serving: the 12 800-sample bucket (T' 625)
+LARGE_TRAIN_SHAPE, LARGE_SERVE_SHAPE = (32, 384), (8, 625)
+LARGE_SAMPLES = (6401, 7681)  # raw lengths that pad to one 7 680-sample (768-frame) bucket
+LARGE_TRAIN, LARGE_VAL = 64, 16  # corpus: 2 overfit batches of 32, 1 val batch of 16
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, SXM, 700 W
+# bf16 kernel tolerances: the attention kernels round p ∘ μ before dividing
+# by the row sum (the plain version, as the Pallas kernel, rounds the
+# normalised weights) and sum on the tensor cores: within a few bf16
+# roundings of each output's largest magnitude. The depthwise forward and
+# dx are bit-equal; dw and db are fp32 partials
+ATTN_BF16_REL = 2.0**-6
+DW_BF16_SUM_REL = 1e-4
+# card vs CPU (and a stream window vs the offline forward), both bf16: a
+# rounding flipped anywhere in 12 blocks moves the encoder's output by a
+# fraction of a percent, so the logits — and the log-probs — by that
+# fraction of their scale: within 2⁻⁶ of the largest |log-prob|
+BF16_LOGPROB_REL = 2.0**-6
+BF16_LOSS_RTOL = 1e-2  # card vs CPU train step, both bf16
+# bf16 gradients card vs CPU, per tensor as a fraction of its largest fp32
+# gradient: within twice the CPU's own bf16-vs-fp32 gap, plus 1 %
+BF16_GRAD_NOISE_FACTOR, BF16_GRAD_FLOOR = 2.0, 1e-2
+LARGE_RATE_STEPS = 10
+LARGE_PARITY_BLOCKS, LARGE_PARITY_B = 2, 2  # card vs CPU step: depth cut for the CPU's sake
+
+
+@functools.cache
+def large_config() -> dict:
+    """``configs/tpu_scaled_large.yaml`` through ``load_config``, its
+    ``parallel:`` section cut to one device (ROADMAP Q1.10); callers copy it."""
+    cfg = load_config(LARGE_PATH)
+    cfg["parallel"] = {"data": "auto", "model": 1}
+    return cfg
+
+
+def large_key(key: str):
+    return large_config()["model"]["encoder"][key]
+
+
+def large_model(**enc) -> "torch.nn.Module":
+    """The full-width, full-depth model on the CPU, random weights from
+    ``SEED`` (the same whatever ``enc`` selects)."""
+    cfg = {"model": copy.deepcopy(large_config()["model"])}
+    cfg["model"]["encoder"].update(enc)
+    model = build_model(cfg, input_dim=large_key("input_dim"), vocab_size=48)
+    init_flax_style(model, torch.Generator().manual_seed(SEED))
+    return model
+
+
+def large_serving_model() -> "torch.nn.Module":
+    """:func:`large_model` with phase 3's ×10 CTC head: peaked log-probs, so
+    the greedy tokens compared are not near-ties that a rounding reorders."""
+    model = large_model()
+    with torch.no_grad():
+        model.ctc_head.fc.weight.mul_(10.0)
+    return model
+
+
+def bf16_cases(rng: np.random.Generator, B: int, T: int, drop: bool):
+    """Attention and depthwise inputs at the large model's width in bf16:
+    q, k, v, g (B, H, T, hd) views of (B, T, H, hd), a key mask with one row
+    of length 1, the bf16 multiplier (1/0.9 rounds to 1.109375) or None;
+    x, g (B, T, C), taps and bias."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    H, D, K = large_key("num_heads"), large_key("d_model"), large_key("depthwise_conv_kernel_size")
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, T, H, D // H)).astype(np.float32))
+                  .to(dev, bf).transpose(1, 2) for _ in range(4))
+    lengths = rng.integers(T // 2, T + 1, size=B)
+    lengths[0], lengths[-1] = T, 1
+    mask = torch.from_numpy((np.arange(T)[None, :] < lengths[:, None]).astype(np.int32)).to(dev)
+    rate = large_key("dropout")
+    mult = (torch.from_numpy(rng.random((T, T)) >= rate).to(dev, bf) / (1 - rate)) if drop else None
+    x, gx = (torch.from_numpy(rng.normal(size=(B, T, D)).astype(np.float32)).to(dev, bf)
+             for _ in range(2))
+    w = torch.from_numpy((rng.normal(size=(K, D)) / 4).astype(np.float32)).to(dev, bf)
+    b = torch.from_numpy(rng.normal(size=(D,)).astype(np.float32)).to(dev, bf)
+    return (q, k, v, g, mask, mult), (x, gx, w, b)
+
+
+def rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
+    """Phase 15a: the four bf16 kernel instances against their plain bf16
+    versions at the large model's shapes, timed beside the plain versions,
+    SDPA's bf16 efficient backend and a bf16 ``F.conv1d``."""
+    t0 = time.perf_counter()
+    entries = {}
+    H, D, K = large_key("num_heads"), large_key("d_model"), large_key("depthwise_conv_kernel_size")
+    hd = D // H
+    for label, (B, T) in (("train", LARGE_TRAIN_SHAPE), ("serve", LARGE_SERVE_SHAPE)):
+        drop = label == "train"  # the train step's dropout multiplier; serving has none
+        (q, k, v, g, mask, mult), (x, gx, w, b) = bf16_cases(rng, B, T, drop)
+        out, rmax, rsum = attn.ATTN_FWD_BF16(q, k, v, mask, mult)
+        grads = attn.ATTN_BWD_BF16(q, k, v, out, g, rmax, rsum, mask, mult)
+        again = attn.ATTN_BWD_BF16(q, k, v, out, g, rmax, rsum, mask, mult)
+        want = attn.fused_attention_plain(q, k, v, mask, mult)
+        want_grads = attn.fused_attention_bwd_plain(q, k, v, mask, mult, g)
+        y = dwc.DW_FWD_BF16(x, w, b)
+        dx, part = dwc.DW_BWD_BF16(x, w, gx)
+        want_y = dwc.depthwise_conv1d_plain(x, w, b)
+        want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, gx)
+        torch.cuda.synchronize()
+        a_err = [rel_err(a, bb) for a, bb in zip((out, *grads), (want, *want_grads))]
+        a_abs = [max_err([a.float()], [bb.float()]) for a, bb in zip((out, *grads), (want, *want_grads))]
+        for name, e in zip(("out", "dq", "dk", "dv"), a_err):
+            check(e <= ATTN_BF16_REL, f"bf16 attention {name} at {label}: {e:.3e} of its largest "
+                  f"> {ATTN_BF16_REL}")
+        check(all(t.dtype == torch.bfloat16 and bool(torch.isfinite(t).all()) for t in (out, *grads)),
+              f"bf16 attention at {label}: outputs not finite bf16")
+        pad = mask[:, None, :, None] == 0
+        check(bool((grads[1].masked_select(pad) == 0).all() and (grads[2].masked_select(pad) == 0).all()),
+              f"bf16 attention at {label}: padded keys got a nonzero dk / dv")
+        check(all(torch.equal(a, bb) for a, bb in zip(grads, again)),
+              f"bf16 attention at {label}: two backward runs differ")
+        check(torch.equal(y, want_y), f"bf16 depthwise forward at {label}: not bit-equal to the plain "
+              f"version (max abs err {max_err([y.float()], [want_y.float()])})")
+        check(torch.equal(dx, want_dx), f"bf16 depthwise dx at {label}: not bit-equal to the plain "
+              f"version (max abs err {max_err([dx.float()], [want_dx.float()])})")
+        sums = part.sum(dim=(0, 1))
+        d_err = [rel_err(sums[:K], want_dwp.sum(dim=0)), rel_err(sums[K], gx.float().sum(dim=(0, 1)))]
+        d_abs = max_err([sums[:K], sums[K]], [want_dwp.sum(dim=0), gx.float().sum(dim=(0, 1))])
+        check(max(d_err) <= DW_BF16_SUM_REL, f"bf16 depthwise dw / db at {label}: {d_err} of the "
+              f"largest > {DW_BF16_SUM_REL}")
+        print(f"[large-kernels] {label} B={B} T'={T} H={H} hd={hd} C={D} K={K}"
+              f"{' (dropout mult)' if drop else ''}: attention out/dq/dk/dv within "
+              f"{', '.join(f'{e:.2e}' for e in a_err)} of their largest (gate {ATTN_BF16_REL:.3e}); "
+              f"depthwise forward and dx bit-equal (torch.equal), dw/db within "
+              f"{d_err[0]:.2e}/{d_err[1]:.2e} (gate {DW_BF16_SUM_REL})")
+
+        bias = sdpa_bias(mask, H, torch.bfloat16)
+        additive = torch.where(mask[:, None, None, :] != 0, 0.0, -1e30).to(torch.bfloat16)
+        s_out, s_lse, s_seed, s_off = torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, bias, True, 0.0, False)
+        pad_t = K // 2
+        xc, wc = x.transpose(1, 2).contiguous(), w.t().contiguous()[:, None, :]
+        xcg, wcg, bcg = (t.clone().requires_grad_(True) for t in (xc, wc, b))
+        gc = gx.transpose(1, 2).contiguous()
+
+        def conv_fwd_bwd():
+            o = F.conv1d(xcg, wcg, bcg, padding=pad_t, groups=D)
+            torch.autograd.grad(o, (xcg, wcg, bcg), gc)
+
+        with sdpa_kernel(SDPA_BACKEND):
+            t = {
+                "attention_fwd_bf16": cuda_ms(lambda: attn.ATTN_FWD_BF16(q, k, v, mask, mult)),
+                "attention_bwd_bf16": cuda_ms(
+                    lambda: attn.ATTN_BWD_BF16(q, k, v, out, g, rmax, rsum, mask, mult)),
+                "attention_fwd_bf16_plain": cuda_ms(
+                    lambda: attn.fused_attention_plain(q, k, v, mask, mult), iters=10),
+                "attention_bwd_bf16_plain": cuda_ms(
+                    lambda: attn.fused_attention_bwd_plain(q, k, v, mask, mult, g), iters=10),
+                "attention_fwd_bf16_library": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive)),
+                "attention_bwd_bf16_library": cuda_ms(
+                    lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+                        g, q, k, v, bias, s_out, s_lse, s_seed, s_off, 0.0,
+                        [True, True, True, False], False)),
+                "depthwise_fwd_bf16": cuda_ms(lambda: dwc.DW_FWD_BF16(x, w, b)),
+                "depthwise_bwd_bf16": cuda_ms(lambda: dwc.DW_BWD_BF16(x, w, gx)),
+                "depthwise_fwd_bf16_plain": cuda_ms(lambda: dwc.depthwise_conv1d_plain(x, w, b),
+                                                    iters=10),
+                "depthwise_bwd_bf16_plain": cuda_ms(
+                    lambda: (dwc.depthwise_conv1d_bwd_plain(x, w, gx), gx.float().sum(dim=(0, 1))),
+                    iters=10),
+                "depthwise_fwd_bf16_library": cuda_ms(
+                    lambda: F.conv1d(xc, wc, b, padding=pad_t, groups=D)),
+                "depthwise_bwd_bf16_library": cuda_ms(conv_fwd_bwd),
+            }
+        n, stats = B * H * T * hd, B * H * T
+        extra = 4 * B * T + (2 * T * T if drop else 0)  # the int32 mask and the bf16 multiplier
+        nx = B * T * D
+        bounds = {
+            # bf16 q, k, v (+ out, g, dq, dk, dv), fp32 row statistics
+            "attention_fwd_bf16": bound(4 * B * H * T * T * hd, 2 * 4 * n + 4 * 2 * stats + extra,
+                                        H100_BF16_FLOPS),
+            "attention_bwd_bf16": bound(10 * B * H * T * T * hd, 2 * 8 * n + 4 * 2 * stats + extra,
+                                        H100_BF16_FLOPS),
+            # fp32 arithmetic on upcast values, off the tensor cores
+            "depthwise_fwd_bf16": bound(2 * nx * K, 2 * (2 * nx + K * D + D)),
+            "depthwise_bwd_bf16": bound(4 * nx * K + nx, 2 * (3 * nx + K * D) + 4 * B * (K + 1) * D),
+        }
+        # max abs err against the plain version: out; the largest of dq, dk,
+        # dv; 0 for the bit-equal depthwise forward; dw / db (dx is bit-equal)
+        errs = {"attention_fwd_bf16": a_abs[0], "attention_bwd_bf16": max(a_abs[1:]),
+                "depthwise_fwd_bf16": 0.0, "depthwise_bwd_bf16": d_abs}
+        sources = {"attention": ("ssd_tpu_torch/csrc/attention.cu", "ssd_tpu/ops/attention.py:166",
+                                 "ssd_tpu/ops/attention.py:187"),
+                   "depthwise": ("ssd_tpu_torch/csrc/depthwise_conv.cu",
+                                 "ssd_tpu/ops/depthwise_conv.py:84",
+                                 "ssd_tpu/ops/depthwise_conv.py:107")}
+        for name, (bnd, by) in bounds.items():
+            print(f"[large-kernels] {label} B={B} T'={T} {name}: kernel {t[name]:.4f} ms, plain "
+                  f"{t[name + '_plain']:.4f} ms, library {t[name + '_library']:.4f} ms, bound "
+                  f"{bnd:.5f} ms ({by}); {bnd / t[name] * 100:.1f} % of the bound; max abs err "
+                  f"{errs[name]:.3e}; {card}")
+            if label == "train":
+                src, fwd, bwd = sources[name.split("_")[0]]
+                entries[name] = {
+                    "name": name, "route": "cuda", "source": src,
+                    "replaces": fwd if "_fwd" in name else bwd,
+                    "launches": None, "max_abs_err": errs[name], "ms": t[name],
+                    "plain_ms": t[name + "_plain"], "bound_ms": bnd, "bound_by": by,
+                    "library_ms": t[name + "_library"],
+                }
+    print(f"[large-kernels] bounds: bf16 bytes (fp32 statistics, mask, partials) at 3.35 TB/s; "
+          f"attention operations (4 / 10 · B·H·T'²·hd) at the H100's dense bf16 tensor-core peak "
+          f"{H100_BF16_FLOPS / 1e12:.0f} TFLOP/s, the depthwise stencil's at the fp32 SIMT "
+          f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s (it computes in fp32); library = SDPA ({SDPA_BACKEND.name}, bf16, "
+          f"additive mask; backward alone through the raw aten op) and F.conv1d(groups=C) in bf16")
+    steps["kernels"] = time.perf_counter() - t0
+    return entries
+
+
+def bf16_agree(what: str, got: torch.Tensor, want: torch.Tensor) -> str:
+    """Two bf16 computations of the same (T', V) log-probs: within
+    ``BF16_LOGPROB_REL`` of ``want``'s largest magnitude, and the same greedy
+    token on every frame whose top-two margin in ``want`` exceeds twice that
+    (elsewhere a rounding may reorder near-tied tokens)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(got.shape == want.shape, f"{what}: log-probs {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite log-probs")
+    err, tol = float((got - want).abs().max()), BF16_LOGPROB_REL * float(want.abs().max())
+    check(err <= tol, f"{what}: log-probs max abs err {err} > {tol}")
+    top2 = want.topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = got.argmax(-1) == want.argmax(-1)
+    check(bool(same[decisive].all()), f"{what}: greedy tokens differ on "
+          f"{int((~same[decisive]).sum())} decisive frames")
+    return (f"log-probs max abs err {err:.3e} (tol {tol:.3e}: {BF16_LOGPROB_REL} of the largest "
+            f"|log-prob|) over {len(want)} frames; greedy tokens equal on all {int(decisive.sum())} "
+            f"frames whose top-two margin > {2 * tol:.3e} ({int(same.sum())} of {len(want)} equal "
+            f"overall)")
+
+
+def large_run_dir(run_dir: Path, model, **enc) -> Path:
+    """``model``'s weights saved with the large config (``enc`` over its
+    encoder block) as a checkpoint under ``run_dir``."""
+    run_dir.mkdir(parents=True, exist_ok=True)
+    default_vocab().to_json(run_dir / "vocab.json")
+    cfg = copy.deepcopy(large_config())
+    cfg["data"] = {"vocab": str(run_dir / "vocab.json")}
+    cfg["model"]["encoder"].update(enc)
+    save_checkpoint(run_dir, model.state_dict(), cfg)
+    return run_dir / "last"
+
+
+def large_serving(root: Path, model, rng: np.random.Generator, card: str, steps: dict,
+                  fused: bool) -> dict:
+    """Phase 15b (a configuration): the engine and the server (phase 3/4's
+    counted run), the card's log-probs against the CPU engine, a streaming
+    window, an exported call (fused/pallas) and greedy p50."""
+    name = "fused" if fused else "shipped"
+    enc = FUSED if fused else {}
+    L = large_key("num_layers")
+    per_call = {"logmel": 1}
+    if fused:
+        per_call.update(attention_fwd_bf16=L, depthwise_fwd_bf16=L)
+    t0 = time.perf_counter()
+    ckpt = large_run_dir(root / f"large_{name}", model, **enc)
+    engines, batches, launches = phase_main_path(ckpt, rng, sizes=(1, 8), per_call=per_call)
+    steps[f"{name} engine+server"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu")
+    reqs = batches[1]
+    lp, ol = engines["greedy"].forward(reqs)
+    lp_cpu, ol_cpu = cpu.forward(reqs)
+    check(lp.dtype == torch.float32, f"{name}: log-probs reach the decoders as {lp.dtype}")
+    check(torch.equal(ol.cpu(), ol_cpu), f"{name}: out lengths card vs CPU")
+    n = int(ol_cpu[0])
+    print(f"[large-serve] {name}: B=1 card vs CPU engine (both bf16): "
+          f"{bf16_agree(f'{name} card vs CPU', lp[0, :n], lp_cpu[0, :n])}")
+    del cpu
+    steps[f"{name} cpu parity"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    engine = engines["greedy"]
+    counted = Launches(per_call)
+    emg = rng.normal(size=(ONE_WINDOW_SAMPLES, CHANNELS)).astype(np.float32)
+    before = counts()
+    st, text, slp, _ = run_stream(engine, emg, chunk_frames=ONE_WINDOW_CHUNK)
+    counted.add(f"{name}: the one-window stream", before, st.windows)
+    check(st.windows == 1, f"{name}: the one-window stream ran {st.windows} windows")
+    off_lp, off_len = engine.forward([emg])
+    # the window's running z-norm and padding differ from the offline
+    # forward's at fp32 rounding, which bf16 may round apart
+    print(f"[large-serve] {name}: a one-window stream ({ONE_WINDOW_SAMPLES} samples, S "
+          f"{ONE_WINDOW_CHUNK}, text {text[:30]!r}) vs the offline forward: "
+          f"{bf16_agree(f'{name} stream', torch.from_numpy(slp), off_lp[0, : int(off_len[0])])}")
+    if fused:
+        out = root / f"large_{name}_export"
+        export_checkpoint(ckpt, out, batch_sizes=(1,), sample_lengths=(BUCKET,), device="cuda")
+        manifest = json.loads((out / "manifest.json").read_text())
+        nodes = [str(nd.target) for nd in
+                 torch.export.load(out / manifest["buckets"][0]["file"]).graph.nodes]
+        ops = {op: nodes.count(f"ssd_tpu_torch.{op}.default")
+               for op in ("logmel_core", "attention_fwd", "depthwise_fwd")}
+        check(ops == {"logmel_core": 1, "attention_fwd": L, "depthwise_fwd": L},
+              f"{name}: exported custom-op nodes {ops}")
+        artifact = ExportedTranscriber.load(out, device="cuda")
+        req = [rng.normal(size=(12000, CHANNELS)).astype(np.float32)]
+        before = counts()
+        tokens, n_tok = artifact.call(req)
+        counted.add(f"{name}: the exported call", before, 1)
+        elp, eol = engine.forward(req)
+        vocab = engine.vocab
+        want_tokens, want_n = greedy_decode(elp, eol, blank_id=vocab.blank_id, pad_id=vocab.pad_id)
+        check(np.array_equal(n_tok, want_n[:1].cpu().numpy())
+              and np.array_equal(tokens, want_tokens[:1].cpu().numpy()),
+              f"{name}: exported tokens differ from the engine's greedy decode")
+        print(f"[large-serve] {name}: exported (B 1, {BUCKET} samples) in "
+              f"{manifest['buckets'][0]['export_seconds']:.2f} s with custom-op nodes {ops}; its "
+              f"tokens equal the engine's greedy decode")
+    for B in (1, 8):
+        req = [rng.normal(size=(12000, CHANNELS)).astype(np.float32) for _ in range(B)]
+        engine.transcribe(req)
+        per_utt = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            engine.transcribe(req)
+            per_utt.append((time.perf_counter() - t1) / B)
+        print(f"[large-serve] {name}: greedy B={B} 12 000 samples p50 "
+              f"{np.percentile(per_utt, 50) * 1e3:.3f} ms an utterance (5 runs, host clock, "
+              f"transcribe end to end); {card}")
+    steps[f"{name} stream/export/latency"] = time.perf_counter() - t0
+    return {k: launches[k] + counted.total[k] for k in COUNTERS}
+
+
+def large_corpus(root: Path, rng: np.random.Generator) -> Path:
+    """64 train + 16 val raw-EMG utterances of one 768-frame bucket with
+    WavLM-width teacher features, and the large config (parallel cut) with
+    the corpus's paths as the run's JSON config; returns its path."""
+    root.mkdir(parents=True, exist_ok=True)
+    vocab_path = root / "vocab.json"
+    default_vocab().to_json(vocab_path)
+    chars = list("abcdefghijklmnopqrstuvwxyz") + [" "] * 6 + list("',.?")
+    rows = []
+    for i in range(LARGE_TRAIN + LARGE_VAL):
+        uid = f"voiced_parallel_data/s1/{i}_0"
+        n = int(rng.integers(*LARGE_SAMPLES))
+        raw_path = root / "raw" / f"{i}_0_emg.npy"
+        raw_path.parent.mkdir(parents=True, exist_ok=True)
+        np.save(raw_path, rng.normal(size=(n, CHANNELS)).astype(np.float32))
+        tpath = root / "features" / "teacher" / f"{uid}.npy"
+        tpath.parent.mkdir(parents=True, exist_ok=True)
+        np.save(tpath, rng.normal(size=(n // 20, TEACHER_DIM)).astype(np.float32))
+        text = "".join(rng.choice(chars, size=int(rng.integers(30, 101))))
+        rows.append(dict(utterance_id=uid, split="voiced_parallel_data",
+                         subset="train" if i < LARGE_TRAIN else "val", speaker="s1", stem=f"{i}_0",
+                         emg_path=str(raw_path), audio_path=None, transcript=text,
+                         sentence_index=i, book="", has_audio=False, metadata_json="{}"))
+    save_index(rows, root / "index.jsonl")
+    cfg = copy.deepcopy(large_config())
+    cfg["data"].update(index=str(root / "index.jsonl"), features_root=str(root / "features"),
+                       vocab=str(vocab_path))
+    path = root / "config.json"
+    path.write_text(json.dumps(cfg, indent=2))
+    return path
+
+
+def large_train(root: Path, cfg_path: Path, card: str, steps: dict, fused: bool) -> dict:
+    """Phase 15c (a configuration): ``train_from_config`` on the card for one
+    epoch of 2 overfit batches of 32 from raw EMG, bf16 teacher features,
+    remat on; launches counted; the trained checkpoint evaluated by the
+    eval CLI."""
+    name = "fused" if fused else "shipped"
+    L = large_key("num_layers")
+    t0 = time.perf_counter()
+    cfg = load_config(cfg_path)
+    if fused:
+        cfg["model"]["encoder"].update(FUSED)
+    cfg["optim"]["max_epochs"] = 1
+    enc, data = cfg["model"]["encoder"], cfg["data"]
+    check(enc["compute_dtype"] == "bfloat16" and enc["remat"] and enc["scan_layers"]
+          and data["train_from_raw"] and data["teacher_dtype"] == "bfloat16",
+          f"{name}: the config is not the shipped bf16 / remat / raw recipe: {enc}, {data}")
+    reset_counts()
+    summary = trainer.train_from_config(cfg, root / f"run_{name}", overfit_batches=2, device="cuda")
+    c = counts()
+    n_train, n_eval = check_epoch(summary["history"][0], f"large {name}")
+    check(n_train == 2 and n_eval == 1, f"large {name}: {n_train} train / {n_eval} eval steps")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(logmel=n_train + n_eval, ctc_alpha=n_train + n_eval, ctc_beta=n_train)
+    if fused:
+        # remat recomputes every block's forward in the backward: twice a train step
+        want.update(attention_fwd_bf16=L * (2 * n_train + n_eval),
+                    depthwise_fwd_bf16=L * (2 * n_train + n_eval),
+                    attention_bwd_bf16=L * n_train, depthwise_bwd_bf16=L * n_train)
+    check(c == want, f"large {name} training launched {c}, expected {want}")
+    h = summary["history"][0]
+    print(f"[large-train] {name}: 1 epoch of {n_train} train steps (B {cfg['optim']['batch_size']}, "
+          f"768-frame buckets from raw EMG, bf16, remat, bf16 teacher) + {n_eval} eval step in "
+          f"{time.perf_counter() - t0:.2f} s (checkpoints included); train total "
+          f"{h['train']['total']:.4f}, val total {h['val']['total']:.4f}; launches "
+          f"{ {k: v for k, v in c.items() if v} }")
+    steps[f"{name} train"] = time.perf_counter() - t0
+    totals = dict(c)
+    if fused:
+        t0 = time.perf_counter()
+        out = root / "eval_fused"
+        reset_counts()
+        ev.main(["--checkpoint", str(root / f"run_{name}" / "last"), "--device", "cuda",
+                 "--decoder", "greedy", "--batch-size", "8", "--output", str(out)])
+        c = counts()
+        metrics = json.loads((out / "metrics.json").read_text())
+        n = metrics["data"]["num_samples"]
+        batches = -(-n // 8)
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update(logmel=batches, attention_fwd_bf16=L * batches, depthwise_fwd_bf16=L * batches)
+        check(n == LARGE_VAL and c == want, f"large eval: {n} utterances, launches {c}, expected {want}")
+        print(f"[large-eval] the eval CLI on the trained fused/pallas checkpoint: {n} utterances in "
+              f"{batches} batches, WER {metrics['wer']:.4f} CER {metrics['cer']:.4f}; launches "
+              f"{ {k: v for k, v in c.items() if v} }")
+        for k in totals:
+            totals[k] += c[k]
+        steps["eval"] = time.perf_counter() - t0
+    return totals
+
+
+def large_batch(rng: np.random.Generator, B: int) -> dict:
+    """A raw-EMG batch of one 7 680-sample bucket with bf16 teacher bits."""
+    lengths = rng.integers(*LARGE_SAMPLES, size=B)
+    lengths[0] = LARGE_SAMPLES[1] - 1
+    emg = np.zeros((B, LARGE_SAMPLES[1] - 1, CHANNELS), np.float32)
+    S = 128
+    tok_len = rng.integers(S // 2, S + 1, size=B)
+    tokens = np.zeros((B, S), np.int32)
+    for i, n in enumerate(lengths):
+        emg[i, :n] = rng.normal(size=(n, CHANNELS))
+        tokens[i, : tok_len[i]] = rng.integers(3, 48, size=tok_len[i])
+    teacher = rng.normal(size=(B, 384, TEACHER_DIM)).astype(np.float32)
+    return {"emg": emg, "emg_lengths": lengths.astype(np.int32), "tokens": tokens,
+            "token_lengths": tok_len.astype(np.int32), "weight": np.ones(B, np.float32),
+            "teacher": bf16_bits(teacher), "teacher_lengths": (lengths // 20).astype(np.int32)}
+
+
+def large_rate(rng: np.random.Generator, card: str, steps: dict, fused: bool) -> None:
+    """Phase 15d (a configuration): step p50 at B = 32, T' 384 from raw EMG
+    (the trainer's step: log-mel, encoder, heads, CTC, distillation,
+    backward, AdamW) with remat and without, peak memory of each, and the
+    profiler's device-busy time with remat."""
+    name = "fused" if fused else "shipped"
+    t0 = time.perf_counter()
+    model = large_model(**(FUSED if fused else {})).cuda()
+    opt, _ = build_optimizer(large_config(), model.parameters(), 1000)
+    featurize = feat.FeaturizerConfig.from_config(large_config())
+    batch = trainer.to_device(large_batch(rng, LARGE_TRAIN_SHAPE[0]), torch.device("cuda"))
+    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.zero_grad()
+        total, _ = trainer._losses(model, batch, LAMBDAS, BLANK, False, True, gen, None, featurize)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        total.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        return t2 - t1, t3 - t2, time.perf_counter() - t3
+
+    results = {}
+    for remat in (True, False):
+        model.encoder.cfg = dataclasses.replace(model.encoder.cfg, remat=remat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            timed_step()
+        split = np.asarray([timed_step() for _ in range(LARGE_RATE_STEPS)]) * 1e3
+        step_ms = float(np.percentile(split.sum(axis=1), 50))
+        results[remat] = (step_ms, torch.cuda.max_memory_allocated() / 2**30)
+        fwd, bwd, upd = (float(np.percentile(split[:, i], 50)) for i in range(3))
+        print(f"[large-rate] {name} remat={remat} B={LARGE_TRAIN_SHAPE[0]} 768 frames (T' "
+              f"{LARGE_TRAIN_SHAPE[1]}) from raw EMG, bf16: step p50 {step_ms:.3f} ms (forward + "
+              f"loss {fwd:.3f}, backward {bwd:.3f}, optimizer {upd:.3f}; {LARGE_RATE_STEPS} warm "
+              f"steps, host clock with a sync around each part) = "
+              f"{LARGE_TRAIN_SHAPE[0] / step_ms * 1e3:.2f} utterances/s; peak memory "
+              f"{results[remat][1]:.2f} GiB; {card}")
+        if remat:
+            profile_step(timed_step, step_ms, f"{name} bf16 remat", tag="large-rate")
+    print(f"[large-rate] {name}: remat saves {results[False][1] - results[True][1]:.2f} GiB of peak "
+          f"memory ({results[True][1]:.2f} vs {results[False][1]:.2f}) for "
+          f"{results[True][0] / results[False][0]:.3f}x the step time")
+    model.encoder.cfg = dataclasses.replace(model.encoder.cfg, remat=True)
+    if fused:
+        large_remat_equal(model, rng)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    steps[f"{name} rate"] = time.perf_counter() - t0
+
+
+def large_remat_equal(model, rng: np.random.Generator) -> None:
+    """Gradients of a dropout-0.1 step with remat ``full`` and ``dots`` equal,
+    bit for bit, to the step without remat on the card (the same generator
+    seed; the running statistics equal too). A fixed-weight sum of the
+    log-probs and the student representation stands in for the loss: the
+    CTC backward's scatter-add and cuDNN's convolution backward are not
+    run-to-run deterministic on their own."""
+    batch = trainer.to_device(large_batch(rng, 4), torch.device("cuda"))
+    featurize = feat.FeaturizerConfig.from_config(large_config())
+    feats, lengths, _, _ = feat.logmel_batch(batch["emg"], batch["emg_lengths"], featurize)
+    B, T, C, M = feats.shape
+    feats = feats.reshape(B, T, C * M)
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    gen_lp = gen_st = None
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, remat, policy in (("none", False, "full"), ("full", True, "full"),
+                                     ("dots", True, "dots")):
+            model.encoder.cfg = dataclasses.replace(model.encoder.cfg, remat=remat,
+                                                    remat_policy=policy)
+            model.load_state_dict(stats, strict=False)
+            model.zero_grad(set_to_none=True)
+            gen = torch.Generator("cuda").manual_seed(SEED + 7)
+            lp, _, student = model(feats, lengths, train=True, generator=gen)
+            if gen_lp is None:
+                g = torch.Generator("cuda").manual_seed(SEED + 8)
+                gen_lp = torch.randn(lp.shape, generator=g, device="cuda")
+                gen_st = torch.randn(student.shape, generator=g, device="cuda")
+            ((lp * gen_lp).sum() + (student * gen_st).sum()).backward()
+            runs[label] = ({n: p.grad.clone() for n, p in model.named_parameters()},
+                           {n: b.clone() for n, b in model.named_buffers()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+        model.encoder.cfg = dataclasses.replace(model.encoder.cfg, remat=True, remat_policy="full")
+    for label in ("full", "dots"):
+        for i, what in enumerate(("gradient", "running statistic")):
+            bad = [n for n, t in runs["none"][i].items() if not torch.equal(runs[label][i][n], t)]
+            check(not bad, f"remat {label}: {len(bad)} {what}s differ from the step without remat "
+                  f"(first: {bad[:3]})")
+    print(f"[large-remat] fused/pallas, dropout {large_key('dropout')}, B=4: every gradient and "
+          f"running statistic with remat full and dots bit-equal (torch.equal) to the step without "
+          f"remat on the card")
+
+
+def large_train_parity(rng: np.random.Generator) -> None:
+    """Phase 15e: one bf16 train step at full width (depth cut to
+    ``LARGE_PARITY_BLOCKS`` blocks for the CPU) at B = 2 on the card and on
+    the CPU from the same weights and batch (dropout 0): losses, and each
+    gradient within twice the CPU's own bf16-vs-fp32 gap (+ 1 %) of its
+    largest fp32 value; both configurations."""
+    for fused in (False, True):
+        name = "fused" if fused else "shipped"
+        cfg = {"model": copy.deepcopy(large_config()["model"])}
+        cfg["model"]["encoder"].update(num_layers=LARGE_PARITY_BLOCKS, dropout=0.0,
+                                       **(FUSED if fused else {}))
+        cfg["model"]["ctc_dropout"] = 0.0
+        cpu_model = build_model(cfg, input_dim=large_key("input_dim"), vocab_size=48)
+        init_flax_style(cpu_model, torch.Generator().manual_seed(SEED))
+        cfg32 = copy.deepcopy(cfg)
+        cfg32["model"]["encoder"]["compute_dtype"] = "float32"
+        ref_model = build_model(cfg32, input_dim=large_key("input_dim"), vocab_size=48)
+        ref_model.load_state_dict(cpu_model.state_dict())
+        gpu_model = copy.deepcopy(cpu_model).cuda()
+        batch = large_batch(rng, LARGE_PARITY_B)
+        featurize = feat.FeaturizerConfig.from_config(large_config())
+        out = {}
+        for label, model, dev in (("card", gpu_model, torch.device("cuda")),
+                                  ("cpu", cpu_model, torch.device("cpu")),
+                                  ("cpu fp32", ref_model, torch.device("cpu"))):
+            total, losses = trainer._losses(model, trainer.to_device(batch, dev), LAMBDAS, BLANK,
+                                            False, True, None, None, featurize)
+            total.backward()
+            out[label] = {k: float(v.detach()) for k, v in losses.items()}
+        for k in ("total", "ctc", "distill"):
+            check(abs(out["card"][k] - out["cpu"][k]) <= BF16_LOSS_RTOL * abs(out["cpu"][k]),
+                  f"large {name} {k} loss card {out['card'][k]} vs CPU {out['cpu'][k]}")
+        worst = (0.0, 0.0, "")
+        gpu, ref = dict(gpu_model.named_parameters()), dict(ref_model.named_parameters())
+        for pname, p in cpu_model.named_parameters():
+            if pname.endswith((".attn.mha.key.bias", ".conv.dw.bias")):  # true gradient 0: noise
+                continue
+            g32 = ref[pname].grad
+            scale = float(g32.abs().max())
+            cpu_gap = float((p.grad - g32).abs().max()) / scale
+            gap = float((gpu[pname].grad.cpu() - p.grad).abs().max()) / scale
+            check(gap <= BF16_GRAD_NOISE_FACTOR * cpu_gap + BF16_GRAD_FLOOR,
+                  f"large {name} grad {pname}: card vs CPU {gap:.3e} of the largest, the CPU's "
+                  f"bf16-vs-fp32 gap {cpu_gap:.3e}")
+            worst = max(worst, (gap, cpu_gap, pname))
+        print(f"[large-parity] {name}: one bf16 step at full width, {LARGE_PARITY_BLOCKS} blocks, "
+              f"B={LARGE_PARITY_B}, raw EMG: losses card {out['card']} vs CPU {out['cpu']} (rtol "
+              f"{BF16_LOSS_RTOL}; CPU fp32 {out['cpu fp32']}); worst gradient gap card vs CPU "
+              f"{worst[0]:.3e} of the largest ({worst[2]}; the CPU's bf16-vs-fp32 gap there "
+              f"{worst[1]:.3e}; gate {BF16_GRAD_NOISE_FACTOR} x it + {BF16_GRAD_FLOOR})")
+
+
+def phase_large(root: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 15: ``configs/tpu_scaled_large.yaml`` in bf16 on the card, at
+    full width and depth, served and trained in both configurations.
+    Returns the bf16 kernels' entries with the launches of its counted runs."""
+    steps = {}
+    cfg, enc = large_config(), large_config()["model"]["encoder"]
+    print(f"[large] {LARGE_PATH.name} read by load_config: d_model {enc['d_model']}, "
+          f"{enc['num_layers']} blocks, {enc['num_heads']} heads of hd "
+          f"{enc['d_model'] // enc['num_heads']}, ffn {enc['ffn_dim']}, K "
+          f"{enc['depthwise_conv_kernel_size']}, compute_dtype {enc['compute_dtype']}, remat "
+          f"{enc['remat']}, scan_layers {enc['scan_layers']}; data train_from_raw "
+          f"{cfg['data']['train_from_raw']}, teacher_dtype {cfg['data']['teacher_dtype']}; batch "
+          f"{cfg['optim']['batch_size']}")
+    print(f"[large] cuts: parallel: → {cfg['parallel']} (one device: model 1, fsdp and sequence "
+          f"off — ROADMAP Q1.10); random weights from seed {SEED}; a synthetic raw-EMG corpus "
+          f"({LARGE_TRAIN} train + {LARGE_VAL} val utterances of {LARGE_SAMPLES[0]}–"
+          f"{LARGE_SAMPLES[1] - 1} samples); depth not cut on the card")
+    entries = large_kernels(rng, card, steps)
+    t0 = time.perf_counter()
+    model = large_serving_model()
+    print(f"[large] {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters "
+          f"(built and initialised on the CPU in {time.perf_counter() - t0:.2f} s)")
+    launches = dict.fromkeys(COUNTERS, 0)
+    for fused in (False, True):
+        served = large_serving(root, model, rng, card, steps, fused)
+        for k in launches:
+            launches[k] += served[k]
+    del model
+    cfg_path = large_corpus(root / "corpus", rng)
+    for fused in (False, True):
+        trained = large_train(root / "corpus", cfg_path, card, steps, fused)
+        for k in launches:
+            launches[k] += trained[k]
+    for fused in (False, True):
+        large_rate(rng, card, steps, fused)
+    t0 = time.perf_counter()
+    large_train_parity(rng)
+    steps["parity"] = time.perf_counter() - t0
+    print("[large] phase 15 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    print(f"[large] launches of the counted runs: { {k: v for k, v in launches.items() if v} }")
+    for name, e in entries.items():
+        e["launches"] = launches[name]
+        check(e["launches"] > 0, f"{name} was never launched on the main path")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
@@ -2127,6 +2810,7 @@ def main() -> int:
         evaluated = timed("evaluate", phase_evaluate, train_dir, card)
         lm_served = timed("lm fusion", phase_lm, train_dir, run_dir / "fused" / "last", rng, card)
         streamed = timed("streaming+export", phase_stream_export, train_dir, rng, card)
+        large = timed("tpu_scaled_large bf16", phase_large, run_dir / "large", rng, card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     entry["launches"] += evaluated["logmel"] + lm_served["logmel"] + streamed["logmel"]
@@ -2142,6 +2826,7 @@ def main() -> int:
                          + streamed[name])
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
+    kernels += list(large.values())
     print(f"[time] total {sum(seconds.values()):.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

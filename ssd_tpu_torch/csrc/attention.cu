@@ -103,7 +103,45 @@
 //     of the consistent D).
 //   * q, k, v, do and the outputs are strided (B, H, T, hd) views with a unit
 //     hd stride; the (B, T, H, hd) projections are read in place.
+//
+// The bf16 instances (compute_dtype: bfloat16; the ..._bf16 kernels below)
+// compute what the Pallas kernels compute when q, k, v (and do, μ) are bf16:
+// every product takes bf16 operands and accumulates in fp32, the softmax
+// runs in fp32 (row max and row sum stay fp32), the weights are rounded to
+// bf16 before they multiply v (ssd_tpu/ops/attention.py:109), the backward
+// rounds w ∘ μ and ds to bf16 before its products (:130-139), and out, dq,
+// dk, dv are bf16. There is no 3×TF32 split — it exists only to keep fp32
+// accuracy — so the products are plain mma.sync.m16n8k16 bf16 ones:
+// 4·T²·hd flops forward over 989 TFLOP/s (dense bf16) bound them, against
+// half the fp32 bytes. The design is the fp32 one with bf16 tiles:
+//   * 4 warps a CTA, 64 queries (forward, dq) or keys (dk/dv), a warp's 16
+//     rows held as bf16 A fragments (m16n8k16: rows g, g + 8; columns 2t,
+//     2t + 1, 2t + 8, 2t + 9, packed two to a register) for the whole sweep.
+//   * The accumulator of two adjacent 8-column steps is, column for column,
+//     the A fragment of a 16-deep product, so p ∘ μ and ds go from
+//     accumulators to A fragments in registers (rounded to bf16 as they are
+//     packed), with no shuffle and no shared memory.
+//   * Score products read k (or q, do) rows as B operands, two bf16 a
+//     32-bit load at (row g, columns 2t, 2t + 1); products that sum over
+//     rows read v (or k, q, do) as (rows 2t, 2t + 1, column g), two 16-bit
+//     loads packed. Tiles are staged through the same two-stage cp.async
+//     ring (16-byte copies where hd % 8 == 0 and the views allow, plain
+//     loads otherwise), rows padded to hdp + 8 elements: both read patterns
+//     are free of bank conflicts.
+//   * The forward rounds exp(s − m_running) ∘ μ to bf16 and divides by the
+//     row sum at the end, where the Pallas kernel rounds the normalised
+//     weights: the two differ by bf16 rounding, so the kernel is held to its
+//     plain version within a stated tolerance, not bit for bit.
+//   * The backward forms ds as the Pallas kernel does, from fp32 w, dP and
+//     D = Σ_j w μ dP (not from do · out, whose bf16 rounding D would carry),
+//     and rounds it to bf16 before the products. The dq kernel cannot know D
+//     before its sweep ends, so it sweeps the key tiles twice: once to sum D
+//     (stored for the dk/dv launch), once to form ds and dq. The dk/dv kernel
+//     recomputes its transposed scores with the roles of the operands
+//     swapped; the tensor cores sum a 16-deep bf16 product in an order set
+//     by k, not by which operand is A, so its w and dP are the dq kernel's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -757,6 +795,517 @@ attn_bwd_dkdv_kernel(View q, View k, View v, View dout, View dk, View dv,
   store_strip<kSteps>(dv, b, h, key0, P, g, t, dva, nullptr);
 }
 
+
+// ============================================================ bf16 instances
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMuLdH = kTile + 8;  // bf16 μ tile row stride (both read patterns)
+
+struct ViewH {  // a (B, H, T, hd) bf16 tensor with unit stride along hd
+  bf16* p;
+  long long sb, sh, st;
+  __device__ __forceinline__ bf16* row(int b, int h, int t) const {
+    return p + b * sb + h * sh + t * st;
+  }
+};
+
+struct ProblemH {
+  const int* kmask;  // (B, T), nonzero = valid key
+  const bf16* mult;  // (T, T) dropout multiplier, or null
+  int H, T, hd;
+  int hdp;           // hd zero-padded to the kernel's 16-deep k-steps: 16 · kK (48 or 64)
+  int ld;            // shared-memory row stride of a (64, hd) tile, in elements: hdp + 8
+  bool mult_vec;     // μ rows can be copied 16 bytes at a time
+  float scale;
+};
+
+__device__ __forceinline__ bf16 bf16_zero() { return __float2bfloat16_rn(0.f); }
+
+// Rows [t0, t0 + 64) of one (b, h) slice → dst (64 × P.ld), zeros past T and
+// in the columns [hd, hdp).
+template <bool kVec>
+__device__ __forceinline__ void stage_rows_h(const ViewH& v, int b, int h, int t0,
+                                             const ProblemH& P, bf16* dst) {
+  if (kVec) {  // hd % 8 == 0: a 16-byte chunk is all inside hd or all outside
+    const int chunks = P.hdp / 8;
+    for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
+      const int r = i / chunks, c = 8 * (i - r * chunks);
+      const bool ok = t0 + r < P.T && c < P.hd;
+      cp_async16(dst + r * P.ld + c, ok ? v.row(b, h, t0 + r) + c : v.p, ok);
+    }
+  } else {  // element by element, synchronous: visible after the tile's barrier
+    for (int i = threadIdx.x; i < kTile * P.hdp; i += kThreads) {
+      const int r = i / P.hdp, c = i - r * P.hdp;
+      const bool ok = t0 + r < P.T && c < P.hd;
+      dst[r * P.ld + c] = ok ? v.row(b, h, t0 + r)[c] : bf16_zero();
+    }
+  }
+}
+
+// μ[r0 + r][c0 + c], r, c < 64 → dst (64 × kMuLdH), zeros outside T × T.
+__device__ __forceinline__ void stage_mult_h(const ProblemH& P, int r0, int c0, bf16* dst) {
+  if (P.mult_vec) {  // T % 8 == 0 and c0 % 64 == 0: a chunk is all inside T or all outside
+    for (int i = threadIdx.x; i < kTile * kTile / 8; i += kThreads) {
+      const int r = i / (kTile / 8), c = 8 * (i % (kTile / 8));
+      const bool ok = r0 + r < P.T && c0 + c < P.T;
+      cp_async16(dst + r * kMuLdH + c,
+                 ok ? P.mult + static_cast<long long>(r0 + r) * P.T + c0 + c : P.mult, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+      const int r = i / kTile, c = i % kTile;
+      const bool ok = r0 + r < P.T && c0 + c < P.T;
+      dst[r * kMuLdH + c] = ok ? P.mult[static_cast<long long>(r0 + r) * P.T + c0 + c] : bf16_zero();
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 and packed, lo in the low half (the lower k)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// p[0], p[1] (adjacent columns of a row): one 32-bit load
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// p[0], p[ld] (one column of two adjacent rows), packed
+__device__ __forceinline__ uint32_t ld_col_pair(const bf16* p, int ld) {
+  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
+  const uint32_t hi = *reinterpret_cast<const unsigned short*>(p + ld);
+  return lo | (hi << 16);
+}
+
+struct FragH {  // an m16n8k16 bf16 A fragment
+  uint32_t r[4];
+};
+
+// Rows [row0, row0 + 16), columns [16kk, 16kk + 16) of a shared-memory tile:
+// (g, 2t..2t + 1), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..).
+__device__ __forceinline__ FragH load_a_h(const bf16* tile, int ld, int row0, int kk, int g,
+                                          int t) {
+  const bf16* p = tile + (row0 + g) * ld + 16 * kk + 2 * t;
+  return FragH{{ld_pair(p), ld_pair(p + 8 * ld), ld_pair(p + 8), ld_pair(p + 8 * ld + 8)}};
+}
+
+// s[n] (rows g, g + 8 of the warp; columns 8n + 2t, 2t + 1), n < kN, = the
+// warp's 16 rows of A times rows [0, 8kN) of a tile, summed over hd.
+template <int kK, int kN>
+__device__ __forceinline__ void score_tile_h(float s[kN][4], const FragH a[kK], const bf16* tile,
+                                             int ld, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk)
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const bf16* p = tile + (8 * n + g) * ld + 16 * kk + 2 * t;
+      mma_bf16(s[n], a[kk].r, ld_pair(p), ld_pair(p + 8));
+    }
+}
+
+// acc (the warp's 16 rows × hdp, 2kK 8-column steps) += w · tile, summed over
+// rows [0, 16kS) of the tile: w (16 × 16kS, accumulator layout) goes in as A
+// fragments, rounded to bf16, 16 rows of the tile at a time.
+template <int kK, int kS>
+__device__ __forceinline__ void row_product_h(float acc[2 * kK][4], const float w[2 * kS][4],
+                                              const bf16* tile, int ld, int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < kS; ++ks) {
+    const uint32_t a[4] = {pack_bf16(w[2 * ks][0], w[2 * ks][1]),
+                           pack_bf16(w[2 * ks][2], w[2 * ks][3]),
+                           pack_bf16(w[2 * ks + 1][0], w[2 * ks + 1][1]),
+                           pack_bf16(w[2 * ks + 1][2], w[2 * ks + 1][3])};
+    const bf16* p = tile + (16 * ks + 2 * t) * ld + g;
+#pragma unroll
+    for (int nd = 0; nd < 2 * kK; ++nd)
+      mma_bf16(acc[nd], a, ld_col_pair(p + 8 * nd, ld), ld_col_pair(p + 8 * ld + 8 * nd, ld));
+  }
+}
+
+// Rows row0 + g + 8r, columns 8nd + 2t + e of an accumulator strip → dst rows
+// in bf16, divided by div[r] first when given.
+template <int kK>
+__device__ __forceinline__ void store_strip_h(const ViewH& dst, int b, int h, int row0,
+                                              const ProblemH& P, int g, int t,
+                                              const float acc[2 * kK][4], const float* div) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= P.T) continue;
+    bf16* out = dst.row(b, h, row);
+#pragma unroll
+    for (int nd = 0; nd < 2 * kK; ++nd)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * nd + 2 * t + e;
+        if (d < P.hd)
+          out[d] = __float2bfloat16_rn(div ? acc[nd][2 * r + e] / div[r] : acc[nd][2 * r + e]);
+      }
+  }
+}
+
+// A stage of the forward / dq ring: k and v (64 × ld each), μ, key mask.
+struct KeyStageH {
+  bf16* k;
+  bf16* v;
+  bf16* mu;  // 64 × kMuLdH, when P.mult
+  int* km;
+};
+
+__device__ __forceinline__ int mu_elems_h(const ProblemH& P) {
+  return P.mult != nullptr ? kTile * kMuLdH : 0;
+}
+
+__device__ __forceinline__ KeyStageH key_stage_h(unsigned char* smem, int s, const ProblemH& P) {
+  const int bytes = 2 * (2 * kTile * P.ld + mu_elems_h(P)) + 4 * kTile;
+  KeyStageH st;
+  st.k = reinterpret_cast<bf16*>(smem + s * bytes);
+  st.v = st.k + kTile * P.ld;
+  st.mu = st.v + kTile * P.ld;
+  st.km = reinterpret_cast<int*>(st.mu + mu_elems_h(P));
+  return st;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_key_tile_h(const ViewH& k, const ViewH& v, int b, int h,
+                                                int q0, int k0, const ProblemH& P,
+                                                const KeyStageH& st) {
+  stage_rows_h<kVec>(k, b, h, k0, P, st.k);
+  stage_rows_h<kVec>(v, b, h, k0, P, st.v);
+  if (P.mult != nullptr) stage_mult_h(P, q0, k0, st.mu);
+  stage_vector(P.kmask + static_cast<long long>(b) * P.T, k0, P.T, st.km);
+}
+
+// μ at (row, columns c, c + 1) of a stage's tile, as floats
+__device__ __forceinline__ float2 mu_pair(const bf16* mu, int row, int c) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(mu + row * kMuLdH + c));
+}
+
+template <bool kVec, int kK>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_bf16_kernel(ViewH q, ViewH k, ViewH v, ViewH out, float* __restrict__ row_max,
+                     float* __restrict__ row_sum, ProblemH P) {
+  extern __shared__ __align__(16) unsigned char smem_h[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (P.T + kTile - 1) / kTile;
+
+  // the query tile lands in stage 1's k slot and is read into registers
+  // before key tile 1 is queued there
+  stage_rows_h<kVec>(q, b, h, q0, P, key_stage_h(smem_h, 1, P).k);
+  load_key_tile_h<kVec>(k, v, b, h, q0, 0, P, key_stage_h(smem_h, 0, P));
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  FragH qf[kK];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk)
+    qf[kk] = load_a_h(key_stage_h(smem_h, 1, P).k, P.ld, 16 * warp, kk, g, t);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
+  float o[2 * kK][4];
+#pragma unroll
+  for (int nd = 0; nd < 2 * kK; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in for every thread; every warp is done with tile j − 1
+    if (j + 1 < ntiles)
+      load_key_tile_h<kVec>(k, v, b, h, q0, (j + 1) * kTile, P,
+                            key_stage_h(smem_h, (j + 1) & 1, P));
+    cp_async_commit();
+    const KeyStageH st = key_stage_h(smem_h, j & 1, P);
+    const int k0 = j * kTile;
+
+    float s[kRowSteps][4];
+    score_tile_h<kK, kRowSteps>(s, qf, st.k, P.ld, g, t);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kRowSteps; ++nt) {
+      const int c = 8 * nt + 2 * t;
+      const int2 km = *reinterpret_cast<const int2*>(st.km + c);
+      const float kb[2] = {key_bias(k0 + c, km.x, P.T), key_bias(k0 + c + 1, km.y, P.T)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = fmaf(s[nt][e], P.scale, kb[e & 1]);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));  // finite: the tile has a key < T
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kRowSteps; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m[e >> 1]);  // 0 past T
+        rs[e >> 1] += s[nt][e];
+      }
+      if (P.mult != nullptr) {  // μ scales p in the output sum only
+        const float2 u0 = mu_pair(st.mu, 16 * warp + g, 8 * nt + 2 * t);
+        const float2 u1 = mu_pair(st.mu, 16 * warp + g + 8, 8 * nt + 2 * t);
+        s[nt][0] *= u0.x;
+        s[nt][1] *= u0.y;
+        s[nt][2] *= u1.x;
+        s[nt][3] *= u1.y;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
+#pragma unroll
+    for (int nd = 0; nd < 2 * kK; ++nd) {
+      o[nd][0] *= corr[0];
+      o[nd][1] *= corr[0];
+      o[nd][2] *= corr[1];
+      o[nd][3] *= corr[1];
+    }
+    row_product_h<kK, kRowSteps / 2>(o, s, st.v, P.ld, g, t);  // out += bf16(p ∘ μ) · v
+  }
+
+  store_strip_h<kK>(out, b, h, q0 + 16 * warp, P, g, t, o, l);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      if (row < P.T) {
+        const long long i = (static_cast<long long>(b) * P.H + h) * P.T + row;
+        row_max[i] = m[r];
+        row_sum[i] = l[r];
+      }
+    }
+  }
+}
+
+template <bool kVec, int kK>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_bf16_kernel(ViewH q, ViewH k, ViewH v, ViewH dout, ViewH dq,
+                        const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                        float* __restrict__ delta, ProblemH P) {
+  extern __shared__ __align__(16) unsigned char smem_h[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (P.T + kTile - 1) / kTile;
+  const int row0 = q0 + 16 * warp;
+
+  // q and do land in stage 1's k and v slots
+  stage_rows_h<kVec>(q, b, h, q0, P, key_stage_h(smem_h, 1, P).k);
+  stage_rows_h<kVec>(dout, b, h, q0, P, key_stage_h(smem_h, 1, P).v);
+  load_key_tile_h<kVec>(k, v, b, h, q0, 0, P, key_stage_h(smem_h, 0, P));
+  cp_async_commit();
+  float m[2], rl[2];  // rows g and g + 8: the row max and 1 / the row sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const long long i = (static_cast<long long>(b) * P.H + h) * P.T + row;
+    m[r] = row < P.T ? row_max[i] : 0.f;
+    rl[r] = 1.f / (row < P.T ? row_sum[i] : 1.f);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  FragH qf[kK], df[kK];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+    qf[kk] = load_a_h(key_stage_h(smem_h, 1, P).k, P.ld, 16 * warp, kk, g, t);
+    df[kk] = load_a_h(key_stage_h(smem_h, 1, P).v, P.ld, 16 * warp, kk, g, t);
+  }
+  // sweep 1 (j < ntiles) sums D_i = Σ_j w μ dP; sweep 2 forms
+  // ds = w ∘ (μ dP − D) · scale, rounds it to bf16 and sums dq = ds · k
+  float D[2] = {0.f, 0.f};
+  float acc[2 * kK][4];
+#pragma unroll
+  for (int nd = 0; nd < 2 * kK; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int steps = 2 * ntiles;
+  for (int j = 0; j < steps; ++j) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + 1 < steps)
+      load_key_tile_h<kVec>(k, v, b, h, q0, ((j + 1) % ntiles) * kTile, P,
+                            key_stage_h(smem_h, (j + 1) & 1, P));
+    cp_async_commit();
+    const KeyStageH st = key_stage_h(smem_h, j & 1, P);
+    const int k0 = (j % ntiles) * kTile;
+    const bool second = j >= ntiles;
+    if (j == ntiles) {  // D is complete: stored for the dk/dv launch
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        D[r] = quad_sum(D[r]);
+        const int row = row0 + g + 8 * r;
+        if (t == 0 && row < P.T) delta[(static_cast<long long>(b) * P.H + h) * P.T + row] = D[r];
+      }
+    }
+#pragma unroll 1
+    for (int c0 = 0; c0 < kRowSteps; c0 += 2) {  // 16 keys at a time
+      float s[2][4], dp[2][4];
+      score_tile_h<kK, 2>(s, qf, st.k + 8 * c0 * P.ld, P.ld, g, t);
+      score_tile_h<kK, 2>(dp, df, st.v + 8 * c0 * P.ld, P.ld, g, t);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int c = 8 * (c0 + n) + 2 * t;
+        float mu[4] = {1.f, 1.f, 1.f, 1.f};
+        if (P.mult != nullptr) {
+          const float2 u0 = mu_pair(st.mu, 16 * warp + g, c);
+          const float2 u1 = mu_pair(st.mu, 16 * warp + g + 8, c);
+          mu[0] = u0.x;
+          mu[1] = u0.y;
+          mu[2] = u1.x;
+          mu[3] = u1.y;
+        }
+        const int2 km = *reinterpret_cast<const int2*>(st.km + c);
+        const float kb[2] = {key_bias(k0 + c, km.x, P.T), key_bias(k0 + c + 1, km.y, P.T)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float w = expf(fmaf(s[n][e], P.scale, kb[e & 1]) - m[r]) * rl[r];  // 0 past T
+          if (second)
+            s[n][e] = w * (mu[e] * dp[n][e] - D[r]) * P.scale;  // ds
+          else
+            D[r] += w * (mu[e] * dp[n][e]);
+        }
+      }
+      if (second) row_product_h<kK, 1>(acc, s, st.k + 8 * c0 * P.ld, P.ld, g, t);  // dq += ds · k
+    }
+  }
+  store_strip_h<kK>(dq, b, h, row0, P, g, t, acc, nullptr);
+}
+
+// A stage of the dk/dv ring: q and do (64 × ld each), μ (queries × keys),
+// and the queries' m, l and D.
+struct QueryStageH {
+  bf16* q;
+  bf16* dout;
+  bf16* mu;  // 64 × kMuLdH, when P.mult
+  float* m;
+  float* l;
+  float* D;
+};
+
+__device__ __forceinline__ QueryStageH query_stage_h(unsigned char* smem, int s,
+                                                     const ProblemH& P) {
+  const int bytes = 2 * (2 * kTile * P.ld + mu_elems_h(P)) + 3 * 4 * kTile;
+  QueryStageH st;
+  st.q = reinterpret_cast<bf16*>(smem + s * bytes);
+  st.dout = st.q + kTile * P.ld;
+  st.mu = st.dout + kTile * P.ld;
+  st.m = reinterpret_cast<float*>(st.mu + mu_elems_h(P));
+  st.l = st.m + kTile;
+  st.D = st.l + kTile;
+  return st;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_query_tile_h(const ViewH& q, const ViewH& dout, int b,
+                                                  int h, int q0, int k0, const float* row_max,
+                                                  const float* row_sum, const float* delta,
+                                                  const ProblemH& P, const QueryStageH& st) {
+  stage_rows_h<kVec>(q, b, h, q0, P, st.q);
+  stage_rows_h<kVec>(dout, b, h, q0, P, st.dout);
+  if (P.mult != nullptr) stage_mult_h(P, q0, k0, st.mu);
+  const long long bh = (static_cast<long long>(b) * P.H + h) * P.T;
+  stage_vector(row_max + bh, q0, P.T, st.m);
+  stage_vector(row_sum + bh, q0, P.T, st.l);
+  stage_vector(delta + bh, q0, P.T, st.D);
+}
+
+template <bool kVec, int kK>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_bf16_kernel(ViewH q, ViewH k, ViewH v, ViewH dout, ViewH dk, ViewH dv,
+                          const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                          const float* __restrict__ delta, ProblemH P) {
+  extern __shared__ __align__(16) unsigned char smem_h[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (P.T + kTile - 1) / kTile;
+  const int key0 = k0 + 16 * warp;
+
+  // k and v land in stage 1's q and do slots
+  stage_rows_h<kVec>(k, b, h, k0, P, query_stage_h(smem_h, 1, P).q);
+  stage_rows_h<kVec>(v, b, h, k0, P, query_stage_h(smem_h, 1, P).dout);
+  load_query_tile_h<kVec>(q, dout, b, h, 0, k0, row_max, row_sum, delta, P,
+                          query_stage_h(smem_h, 0, P));
+  cp_async_commit();
+  float kb[2];  // the bias of keys g and g + 8 of the warp
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + g + 8 * r;
+    kb[r] = key_bias(key, key < P.T ? P.kmask[static_cast<long long>(b) * P.T + key] : 0, P.T);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  FragH kf[kK], vf[kK];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+    kf[kk] = load_a_h(query_stage_h(smem_h, 1, P).q, P.ld, 16 * warp, kk, g, t);
+    vf[kk] = load_a_h(query_stage_h(smem_h, 1, P).dout, P.ld, 16 * warp, kk, g, t);
+  }
+  float dka[2 * kK][4], dva[2 * kK][4];
+#pragma unroll
+  for (int nd = 0; nd < 2 * kK; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + 1 < ntiles)
+      load_query_tile_h<kVec>(q, dout, b, h, (j + 1) * kTile, k0, row_max, row_sum, delta, P,
+                              query_stage_h(smem_h, (j + 1) & 1, P));
+    cp_async_commit();
+    const QueryStageH st = query_stage_h(smem_h, j & 1, P);
+    const int q0 = j * kTile;
+    // transposed scores and dP: rows are the warp's keys, columns the queries
+#pragma unroll 1
+    for (int c0 = 0; c0 < kRowSteps; c0 += 2) {  // 16 queries at a time
+      float s[2][4], dp[2][4];
+      score_tile_h<kK, 2>(s, kf, st.q + 8 * c0 * P.ld, P.ld, g, t);
+      score_tile_h<kK, 2>(dp, vf, st.dout + 8 * c0 * P.ld, P.ld, g, t);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int cq = 8 * (c0 + n) + 2 * t;
+        const float rl[2] = {1.f / st.l[cq], 1.f / st.l[cq + 1]};  // inf past T: not used
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = cq + (e & 1), r = e >> 1;
+          const float w =
+              q0 + c < P.T ? expf(fmaf(s[n][e], P.scale, kb[r]) - st.m[c]) * rl[e & 1] : 0.f;
+          const float mu = P.mult != nullptr
+                               ? __bfloat162float(st.mu[c * kMuLdH + 16 * warp + g + 8 * r])
+                               : 1.f;
+          s[n][e] = w * mu;                                     // w ∘ μ
+          dp[n][e] = w * (mu * dp[n][e] - st.D[c]) * P.scale;  // ds
+        }
+      }
+      row_product_h<kK, 1>(dva, s, st.dout + 8 * c0 * P.ld, P.ld, g, t);  // dv += bf16(w ∘ μ)ᵀ · do
+      row_product_h<kK, 1>(dka, dp, st.q + 8 * c0 * P.ld, P.ld, g, t);    // dk += bf16(ds)ᵀ · q
+    }
+  }
+  store_strip_h<kK>(dk, b, h, key0, P, g, t, dka, nullptr);
+  store_strip_h<kK>(dv, b, h, key0, P, g, t, dva, nullptr);
+}
+
 // ------------------------------------------------------------------- launch
 
 View view(const float* p, const long long* s) {
@@ -830,6 +1379,71 @@ cudaError_t launch_bwd(View q, View k, View v, View g, View dq, View dk, View dv
   return cudaGetLastError();
 }
 
+ViewH view_h(const void* p, const long long* s) {
+  return ViewH{static_cast<bf16*>(const_cast<void*>(p)), s[0], s[1], s[2]};
+}
+
+bool aligned16_h(const ViewH& v) {
+  return (reinterpret_cast<uintptr_t>(v.p) & 15) == 0 && v.sb % 8 == 0 && v.sh % 8 == 0 &&
+         v.st % 8 == 0;
+}
+
+ProblemH problem_h(const int* kmask, const void* mult, int H, int T, int hd, float scale) {
+  ProblemH P;
+  P.kmask = kmask;
+  P.mult = static_cast<const bf16*>(mult);
+  P.H = H;
+  P.T = T;
+  P.hd = hd;
+  P.hdp = hd <= 48 ? 48 : 64;
+  P.ld = P.hdp + 8;
+  P.mult_vec = mult != nullptr && T % 8 == 0 && (reinterpret_cast<uintptr_t>(mult) & 15) == 0;
+  P.scale = scale;
+  return P;
+}
+
+size_t key_stage_bytes_h(const ProblemH& P) {
+  return 2 * (2 * kTile * P.ld + (P.mult != nullptr ? kTile * kMuLdH : 0)) + 4 * kTile;
+}
+
+template <bool kVec, int kK>
+cudaError_t launch_fwd_h(ViewH q, ViewH k, ViewH v, ViewH o, float* rmax, float* rsum, int B,
+                         const ProblemH& P, cudaStream_t stream) {
+  const size_t smem = 2 * key_stage_bytes_h(P);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_bf16_kernel<kVec, kK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((P.T + kTile - 1) / kTile, P.H, B);
+  attn_fwd_bf16_kernel<kVec, kK><<<grid, kThreads, smem, stream>>>(q, k, v, o, rmax, rsum, P);
+  return cudaGetLastError();
+}
+
+template <bool kVec, int kK>
+cudaError_t launch_bwd_h(ViewH q, ViewH k, ViewH v, ViewH g, ViewH dq, ViewH dk, ViewH dv,
+                         const float* rmax, const float* rsum, float* delta, int B,
+                         const ProblemH& P, cudaStream_t stream) {
+  const dim3 grid((P.T + kTile - 1) / kTile, P.H, B);
+  const size_t smem_dq = 2 * key_stage_bytes_h(P);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_bf16_kernel<kVec, kK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_dq));
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_bf16_kernel<kVec, kK><<<grid, kThreads, smem_dq, stream>>>(q, k, v, g, dq, rmax,
+                                                                          rsum, delta, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem_kv =
+      2 * (2 * (2 * kTile * P.ld + (P.mult != nullptr ? kTile * kMuLdH : 0)) + 3 * 4 * kTile);
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_bf16_kernel<kVec, kK>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkdv_bf16_kernel<kVec, kK><<<grid, kThreads, smem_kv, stream>>>(q, k, v, g, dk, dv,
+                                                                            rmax, rsum, delta, P);
+  return cudaGetLastError();
+}
+
 inline bool valid(int B, int H, int T, int hd) {
   return B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && T >= 1 && hd >= 1 && hd <= kMaxHeadDim;
 }
@@ -888,6 +1502,50 @@ cudaError_t ssd_attn_bwd_launch(const float* q, const float* k, const float* v, 
                                    stream)
              : launch_bwd<false, 8>(vq, vk, vv, vg, vdq, vdk, vdv, row_max, row_sum, delta, B, P,
                                     stream);
+}
+
+// The bf16 instances: q, k, v, o (and dout, dq, dk, dv) bf16 views, mult
+// (T, T) bf16 or null; kmask, row_max, row_sum, delta, strides and the
+// launch geometry as above.
+cudaError_t ssd_attn_fwd_bf16_launch(const void* q, const void* k, const void* v,
+                                     const int* kmask, const void* mult, void* o,
+                                     float* row_max, float* row_sum, const long long* strides,
+                                     int B, int H, int T, int hd, float scale,
+                                     cudaStream_t stream) {
+  if (!valid(B, H, T, hd)) return cudaErrorInvalidValue;
+  const ProblemH P = problem_h(kmask, mult, H, T, hd, scale);
+  const ViewH vq = view_h(q, strides), vk = view_h(k, strides + 3), vv = view_h(v, strides + 6),
+              vo = view_h(o, strides + 9);
+  const bool vec = hd % 8 == 0 && aligned16_h(vq) && aligned16_h(vk) && aligned16_h(vv);
+  if (hd <= 48)
+    return vec ? launch_fwd_h<true, 3>(vq, vk, vv, vo, row_max, row_sum, B, P, stream)
+               : launch_fwd_h<false, 3>(vq, vk, vv, vo, row_max, row_sum, B, P, stream);
+  return vec ? launch_fwd_h<true, 4>(vq, vk, vv, vo, row_max, row_sum, B, P, stream)
+             : launch_fwd_h<false, 4>(vq, vk, vv, vo, row_max, row_sum, B, P, stream);
+}
+
+cudaError_t ssd_attn_bwd_bf16_launch(const void* q, const void* k, const void* v, const void* o,
+                                     const void* dout, const int* kmask, const void* mult,
+                                     const float* row_max, const float* row_sum, float* delta,
+                                     void* dq, void* dk, void* dv, const long long* strides,
+                                     int B, int H, int T, int hd, float scale,
+                                     cudaStream_t stream) {
+  if (!valid(B, H, T, hd)) return cudaErrorInvalidValue;
+  const ProblemH P = problem_h(kmask, mult, H, T, hd, scale);
+  const ViewH vq = view_h(q, strides), vk = view_h(k, strides + 3), vv = view_h(v, strides + 6),
+              vg = view_h(dout, strides + 12), vdq = view_h(dq, strides + 15),
+              vdk = view_h(dk, strides + 18), vdv = view_h(dv, strides + 21);
+  const bool vec =
+      hd % 8 == 0 && aligned16_h(vq) && aligned16_h(vk) && aligned16_h(vv) && aligned16_h(vg);
+  if (hd <= 48)
+    return vec ? launch_bwd_h<true, 3>(vq, vk, vv, vg, vdq, vdk, vdv, row_max, row_sum, delta,
+                                       B, P, stream)
+               : launch_bwd_h<false, 3>(vq, vk, vv, vg, vdq, vdk, vdv, row_max, row_sum, delta,
+                                        B, P, stream);
+  return vec ? launch_bwd_h<true, 4>(vq, vk, vv, vg, vdq, vdk, vdv, row_max, row_sum, delta, B,
+                                     P, stream)
+             : launch_bwd_h<false, 4>(vq, vk, vv, vg, vdq, vdk, vdv, row_max, row_sum, delta, B,
+                                      P, stream);
 }
 
 }  // extern "C"

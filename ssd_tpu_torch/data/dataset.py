@@ -8,7 +8,12 @@
   ``emg_path`` — optional teacher ``(T_t, D)``, tokenized transcript;
 * length-bucketed, statically padded batches (``TIME_BUCKET``,
   ``TOKEN_BUCKET``, ``TEACHER_BUCKET``);
-* deterministic per-epoch shuffles and per-batch augmentation RNG.
+* deterministic per-epoch shuffles and per-batch augmentation RNG;
+* ``teacher_dtype`` / ``emg_dtype`` ``"bfloat16"`` (``data.teacher_dtype``,
+  ``data.emg_dtype``): the batch's teacher or cached EMG features as bf16,
+  rounded to nearest even from fp32 as the JAX loader's ``ml_dtypes`` cast
+  rounds, carried as uint16 bit patterns (:func:`bf16_bits`; the card has
+  no ``ml_dtypes``) — half the host copy and host→device bytes.
 
 Given the same index and seed, the batches equal the JAX loader's bit for
 bit (``tests/test_torch_data.py``). The loader runs in-process, fed to the
@@ -48,17 +53,39 @@ def _round_up(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
 
 
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """fp32 → bf16, as uint16 bit patterns: rounded to nearest, ties to even
+    (``ml_dtypes``' cast, subnormals and overflow to ±inf included); a NaN
+    becomes the quiet NaN ``sign | 0x7FC0``, as there."""
+    x = np.ascontiguousarray(x, np.float32)
+    bits = x.view(np.uint32)
+    out = ((bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) >> 16).astype(np.uint16)
+    nan = np.isnan(x)
+    if nan.any():
+        out[nan] = ((bits[nan] >> 16) & 0x8000) | 0x7FC0
+    return out
+
+
+def _transfer(x: np.ndarray, dtype: str) -> np.ndarray:
+    """A collated fp32 array in the transfer dtype: itself, or its bf16 bits."""
+    if dtype == "bfloat16":
+        return bf16_bits(x)
+    if dtype != "float32":
+        raise ValueError(f"transfer dtype must be float32|bfloat16, got {dtype}")
+    return x
+
+
 @dataclass
 class Batch:
     """One padded batch; all arrays numpy, ready to feed the device."""
 
     utterance_ids: List[str]
     transcripts: List[str]
-    emg: np.ndarray  # (B, T, C·M) float32, or raw (B, samples, C)
+    emg: np.ndarray  # (B, T, C·M) float32 (or bf16 bits), or raw (B, samples, C)
     emg_lengths: np.ndarray  # (B,) int32
     tokens: np.ndarray  # (B, S) int32
     token_lengths: np.ndarray  # (B,) int32
-    teacher: Optional[np.ndarray]  # (B, T_t, D) float32 | None
+    teacher: Optional[np.ndarray]  # (B, T_t, D) float32 (or bf16 bits) | None
     teacher_lengths: Optional[np.ndarray]  # (B,) int32 | None
 
     @property
@@ -162,8 +189,11 @@ def collate(
     spec_augment_cfg: Optional[SpecAugmentConfig] = None,
     rng: Optional[np.random.Generator] = None,
     time_bucket: int = TIME_BUCKET,
+    teacher_dtype: str = "float32",
+    emg_dtype: str = "float32",
 ) -> Batch:
-    """Right-pad items to bucket-rounded static shapes."""
+    """Right-pad items to bucket-rounded static shapes; EMG and teacher in
+    their transfer dtypes (``"bfloat16"``: uint16 bit patterns)."""
     emg_lengths = np.asarray([it["emg"].shape[0] for it in items], np.int32)
     token_lengths = np.asarray([len(it["tokens"]) for it in items], np.int32)
     T = _round_up(int(emg_lengths.max()), time_bucket)
@@ -196,11 +226,11 @@ def collate(
     return Batch(
         utterance_ids=[it["utterance_id"] for it in items],
         transcripts=[it["transcript"] for it in items],
-        emg=emg,
+        emg=_transfer(emg, emg_dtype),
         emg_lengths=emg_lengths,
         tokens=tokens,
         token_lengths=token_lengths,
-        teacher=teacher,
+        teacher=None if teacher is None else _transfer(teacher, teacher_dtype),
         teacher_lengths=teacher_lengths,
     )
 
@@ -223,6 +253,8 @@ class DataLoader:
         spec_augment_cfg: Optional[SpecAugmentConfig] = None,
         max_items: Optional[int] = None,
         time_bucket: int = TIME_BUCKET,
+        teacher_dtype: str = "float32",
+        emg_dtype: str = "float32",
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
@@ -232,6 +264,8 @@ class DataLoader:
         # time-axis padding granularity: feature frames normally, raw samples
         # (frames × hop) when the dataset is in raw mode
         self.time_bucket = time_bucket
+        self.teacher_dtype = teacher_dtype
+        self.emg_dtype = emg_dtype
         self.epoch = 0
         indices = list(range(len(dataset)))
         if max_items is not None:
@@ -269,6 +303,8 @@ class DataLoader:
             spec_augment_cfg=self.spec_augment_cfg if self.shuffle else None,
             rng=rng,
             time_bucket=self.time_bucket,
+            teacher_dtype=self.teacher_dtype,
+            emg_dtype=self.emg_dtype,
         )
 
     def __iter__(self) -> Iterator[Batch]:
@@ -337,6 +373,8 @@ def make_dataloader(
     channel_dropout_cfg: Optional[ChannelDropoutConfig] = None,
     raw: bool = False,
     raw_hop_length: int = 10,
+    teacher_dtype: str = "float32",
+    emg_dtype: str = "float32",
 ) -> DataLoader:
     """Factory with the JAX package's surface (``dataset.py:make_dataloader``).
 
@@ -348,6 +386,11 @@ def make_dataloader(
         raise ValueError(
             "raw mode featurizes on device; host augmentation configs must be "
             "moved on device (augmentation.on_device: true)"
+        )
+    if raw and emg_dtype != "float32":
+        raise ValueError(
+            "emg_dtype applies to cached features only: the on-device "
+            "featurizer needs float32 raw samples for librosa parity"
         )
     dataset = EMGFeatureDataset(
         index_path=index_path,
@@ -369,4 +412,6 @@ def make_dataloader(
         max_items=max_items,
         # same frame granularity as feature mode, expressed in samples
         time_bucket=TIME_BUCKET * raw_hop_length if raw else TIME_BUCKET,
+        teacher_dtype=teacher_dtype,
+        emg_dtype=emg_dtype,
     )

@@ -10,12 +10,34 @@ A strided-conv temporal subsampler followed by N Conformer blocks:
   SiLU → pointwise → Dropout,
 * per-block final LayerNorm.
 
-The unrolled stack in fp32. As in the JAX package, ``train`` is an argument
-of every forward, not module state: ``train=True`` turns on dropout (drawn
-from the caller's ``generator``) and ``MaskedBatchNorm``'s batch statistics.
+The unrolled stack. As in the JAX package, ``train`` is an argument of
+every forward, not module state: ``train=True`` turns on dropout (drawn from
+the caller's ``generator``) and ``MaskedBatchNorm``'s batch statistics.
 Public functions keep the JAX package's channel-last ``(B, T, F)`` layout;
 convolutions transpose inside. LayerNorms use flax's epsilon (1e-6), not
 torch's default.
+
+``compute_dtype`` is flax's ``dtype=``, not ``torch.autocast``: parameters
+stay fp32, and each convolution and Dense layer (:class:`Conv1d`,
+:class:`Dense`) casts its input, weight and bias to the compute dtype and
+returns it, while every LayerNorm (:class:`LayerNorm`) computes and returns
+fp32. So under bf16 the residual stream changes dtype where the JAX
+package's does: ``block_0``'s adds run in bf16 on the subsampler's output,
+every later block's promote to fp32 on ``final_ln``'s. ``scan_layers: true``
+feeds the blocks an fp32 carry (the JAX package's ``nn.scan`` needs a
+dtype-stable carry), so the port, which has only the unrolled layout, casts
+the subsampler's output to fp32 there; with fp32 compute that is a no-op.
+
+``remat`` / ``remat_policy`` / ``attn_remat`` are the JAX package's
+``nn.remat`` of a block (or of the attention alone) as
+``torch.utils.checkpoint`` (:func:`_remat`): ``full`` keeps only the
+block's input, ``dots`` also every matrix product (``mm`` / ``addmm`` /
+``bmm`` / ``baddbmm``, ``jax.checkpoint_policies.checkpoint_dots``),
+``dots_no_batch`` only the 2-D ones (``mm`` / ``addmm``); convolutions and
+the fused attention and depthwise ops are recomputed under every policy.
+The recompute draws the forward's dropout masks again from the caller's
+generator and leaves ``MaskedBatchNorm``'s running statistics alone, so
+gradients and buffers equal an un-rematted step's.
 
 Two config keys pick the implementation of two ops without changing the
 parameters, so a checkpoint of either choice loads into the other:
@@ -27,13 +49,21 @@ stencil on the card, on the channel-last activation).
 
 from __future__ import annotations
 
+import functools
+import logging
+import threading
 from dataclasses import dataclass
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ssd_tpu_torch.ops.attention import fused_attention
 from ssd_tpu_torch.ops.depthwise_conv import depthwise_conv1d
@@ -41,14 +71,15 @@ from ssd_tpu_torch.ops.dropout import dropout, keep_multiplier
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
 
+logger = logging.getLogger(__name__)
+
 
 @dataclass(frozen=True)
 class EncoderConfig:
     """Mirrors ``ssd_tpu.models.conformer.EncoderConfig`` key for key.
 
-    Only the keys that change inference math on one device are read by the
-    port; ``build_model`` rejects values that select a path outside this
-    slice and ignores the memory / parallelism knobs.
+    ``build_model`` rejects values that select a path outside the port and
+    ignores ``sequence_parallel`` (a mesh annotation).
     """
 
     input_dim: int
@@ -70,6 +101,10 @@ class EncoderConfig:
     sequence_parallel: bool = False
     scan_layers: bool = False
     pipeline_microbatches: int = 0
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
     def conv_meta(self) -> list[dict]:
         """(kernel, stride, padding) per subsampler conv — length arithmetic."""
@@ -98,6 +133,43 @@ def _length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
     return torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]
 
 
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to
+    ``dtype``, the product and the output in it; the parameters stay fp32."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv1d(nn.Conv1d):
+    """flax ``nn.Conv(dtype=dtype)`` on ``(B, C, T)``: input, weight and bias
+    cast to ``dtype``, the output in it; the parameters stay fp32."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=float32)``: fp32 statistics and output
+    whatever the input's dtype, flax's epsilon."""
+
+    def __init__(self, d: int):
+        super().__init__(d, eps=_LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.float32))
+
+
 class Conv1dSubsampler(nn.Module):
     """Temporal ×2ᵏ subsampling with stride-2 convs + ReLU (k=5, p=2)."""
 
@@ -107,8 +179,9 @@ class Conv1dSubsampler(nn.Module):
         convs = {}
         in_dim = cfg.input_dim
         for i, m in enumerate(self.metas):
-            convs[f"conv_{i}"] = nn.Conv1d(
-                in_dim, cfg.d_model, m["kernel_size"], stride=m["stride"], padding=m["padding"]
+            convs[f"conv_{i}"] = Conv1d(
+                in_dim, cfg.d_model, m["kernel_size"], stride=m["stride"], padding=m["padding"],
+                dtype=cfg.dtype,
             )
             in_dim = cfg.d_model
         self.convs = nn.ModuleDict(convs)
@@ -126,13 +199,71 @@ def _drop(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tensor:
     return dropout(x, rate, generator) if train else x
 
 
+# --------------------------------------------------------------------------
+# Rematerialization
+# --------------------------------------------------------------------------
+
+_RECOMPUTE = threading.local()  # .active: inside a checkpointed region's recompute
+
+# remat_policy → the aten products a checkpointed block keeps (None: nothing)
+_SAVED_PRODUCTS = {
+    "full": None,
+    "dots": {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default},
+    "dots_no_batch": {torch.ops.aten.mm.default, torch.ops.aten.addmm.default},
+}
+
+
+def recomputing() -> bool:
+    """Whether a checkpointed region is being recomputed for the backward."""
+    return getattr(_RECOMPUTE, "active", False)
+
+
+def _save_products(ops: frozenset, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, x: torch.Tensor, generator: Optional[torch.Generator],
+           policy: str = "full") -> torch.Tensor:
+    """``fn(x)`` under ``torch.utils.checkpoint`` (non-reentrant), keeping
+    what ``policy`` names (:data:`_SAVED_PRODUCTS`). The explicit dropout
+    generator is not among the RNG states ``checkpoint`` preserves, so the
+    recompute sets it back to its state before the forward ran ``fn`` (the
+    same masks) and then forward again to where the step left it."""
+    before = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(x)
+        after = generator.get_state() if generator is not None else None
+        if generator is not None:
+            generator.set_state(before)
+        _RECOMPUTE.active = True
+        try:
+            return fn(x)
+        finally:
+            _RECOMPUTE.active = False
+            if generator is not None:
+                generator.set_state(after)
+
+    ops = _SAVED_PRODUCTS[policy]
+    kwargs = {}
+    if ops is not None:
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, functools.partial(_save_products, ops))
+    return checkpoint(run, x, use_reentrant=False, **kwargs)
+
+
 class _FeedForward(nn.Module):
-    def __init__(self, d_model: int, ffn_dim: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, ffn_dim: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.ln = nn.LayerNorm(d_model, eps=_LN_EPS)
-        self.w1 = nn.Linear(d_model, ffn_dim)
-        self.w2 = nn.Linear(ffn_dim, d_model)
+        self.ln = LayerNorm(d_model)
+        self.w1 = Dense(d_model, ffn_dim, dtype)
+        self.w2 = Dense(ffn_dim, d_model, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         x = _drop(F.silu(self.w1(self.ln(x))), self.dropout, train, generator)
@@ -149,7 +280,10 @@ class MaskedBatchNorm(nn.Module):
     as JAX autodiff's do. The running statistics move with flax's momentum
     convention, ``ra = 0.9·ra + 0.1·batch``, under ``no_grad``.
     ``train=False`` normalizes with the running statistics. Either way
-    ``inv = rsqrt(var + eps)·scale`` and ``x·inv + (bias − mean·inv)``.
+    ``inv = rsqrt(var + eps)·scale`` and ``x·inv + (bias − mean·inv)``, the
+    per-channel affine computed in fp32 and applied in x's dtype. The
+    recompute of a checkpointed block (:func:`recomputing`) leaves the
+    running statistics as the forward left them.
     """
 
     def __init__(self, d: int, epsilon: float = 1e-5, momentum: float = 0.9):
@@ -171,14 +305,15 @@ class MaskedBatchNorm(nn.Module):
             mean = (xf * m).sum(dim=(0, 1)) / cnt
             ex2 = (xf.square() * m).sum(dim=(0, 1)) / cnt
             var = torch.clamp(ex2 - mean.square(), min=0.0)
-            with torch.no_grad():
-                mo = self.momentum
-                self.mean.copy_(mo * self.mean + (1 - mo) * mean)
-                self.var.copy_(mo * self.var + (1 - mo) * var)
+            if not recomputing():
+                with torch.no_grad():
+                    mo = self.momentum
+                    self.mean.copy_(mo * self.mean + (1 - mo) * mean)
+                    self.var.copy_(mo * self.var + (1 - mo) * var)
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.epsilon) * self.weight
-        return x * inv + (self.bias - mean * inv)
+        return x * inv.to(x.dtype) + (self.bias - mean * inv).to(x.dtype)
 
 
 class _ConvModule(nn.Module):
@@ -189,21 +324,23 @@ class _ConvModule(nn.Module):
         conv_norm: str,
         dropout: float = 0.0,
         depthwise_impl: str = "lax",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.conv_norm = conv_norm
         self.dropout = dropout
         self.depthwise_impl = depthwise_impl
-        self.ln = nn.LayerNorm(d_model, eps=_LN_EPS)
-        self.pw1 = nn.Linear(d_model, 2 * d_model)
-        self.dw = nn.Conv1d(
-            d_model, d_model, kernel_size, padding=(kernel_size - 1) // 2, groups=d_model
+        self.ln = LayerNorm(d_model)
+        self.pw1 = Dense(d_model, 2 * d_model, dtype)
+        self.dw = Conv1d(
+            d_model, d_model, kernel_size, padding=(kernel_size - 1) // 2, groups=d_model,
+            dtype=dtype,
         )
         if conv_norm == "batch":
             self.bn = MaskedBatchNorm(d_model)
         else:
-            self.cn = nn.LayerNorm(d_model, eps=_LN_EPS)
-        self.pw2 = nn.Linear(d_model, d_model)
+            self.cn = LayerNorm(d_model)
+        self.pw2 = Dense(d_model, d_model, dtype)
 
     def forward(
         self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None
@@ -216,8 +353,9 @@ class _ConvModule(nn.Module):
         if self.depthwise_impl == "pallas":
             # the stencil runs channel-last; self.dw only holds weight
             # (C, 1, K) and bias (C,), nn.Conv's names (DepthwiseConv1d's)
-            w = self.dw.weight[:, 0, :].t().contiguous()
-            x = depthwise_conv1d(x, w, self.dw.bias)
+            dt = self.dw.compute_dtype
+            w = self.dw.weight[:, 0, :].t().contiguous().to(dt)
+            x = depthwise_conv1d(x.to(dt), w, self.dw.bias.to(dt))
         else:
             x = self.dw(x.transpose(1, 2)).transpose(1, 2)
         x = self.bn(x, pad_mask, train) if self.conv_norm == "batch" else self.cn(x)
@@ -225,28 +363,32 @@ class _ConvModule(nn.Module):
 
 
 class _MultiHeadAttention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` semantics: q scaled by hd^-½
-    before the dot, masked keys set to ``finfo(float32).min`` (a fully
-    masked row becomes uniform, never NaN), fp32 softmax. With
-    ``impl="fused"`` the same projections feed ``ops.attention``'s fused
-    attention instead (the Pallas kernel's numerics: scale after the dot,
-    masked keys at −1e30).
+    """flax ``MultiHeadDotProductAttention`` semantics: q divided by √hd
+    (rounded to the compute dtype) before the dot, masked keys set to the
+    compute dtype's ``finfo.min`` (a fully masked row becomes uniform, never
+    NaN), the softmax in the compute dtype as ``jax.nn.softmax`` takes it
+    (in bf16: the exponentials rounded to bf16, their sum taken in fp32 and
+    rounded, the quotient rounded). With ``impl="fused"`` the same
+    projections feed ``ops.attention``'s fused attention instead (the Pallas
+    kernel's numerics: scale after the dot, masked keys at −1e30, an fp32
+    softmax).
 
     Training dropout on the weights is flax's default ``broadcast_dropout``:
     ONE (T, T) keep-mask shared by every batch row and head, applied to the
     softmax weights before ``·v``."""
 
-    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, impl: str = "flax"):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, impl: str = "flax",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
         self.impl = impl
         if d_model % num_heads:
             raise ValueError(f"d_model={d_model} not divisible by num_heads={num_heads}")
         self.num_heads = num_heads
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.query = Dense(d_model, d_model, dtype)
+        self.key = Dense(d_model, d_model, dtype)
+        self.value = Dense(d_model, d_model, dtype)
+        self.out = Dense(d_model, d_model, dtype)
 
     def forward(
         self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None
@@ -263,21 +405,29 @@ class _MultiHeadAttention(nn.Module):
         if self.impl == "fused":
             ctx = fused_attention(q, k, v, pad_mask, mult)
         else:
-            q = q / (hd ** 0.5)
+            root = hd ** 0.5
+            if q.dtype != torch.float32:  # flax: jnp.sqrt(depth).astype(dtype)
+                root = torch.tensor(root, dtype=q.dtype)
+            q = q / root
             scores = torch.matmul(q, k.transpose(-1, -2))  # (B, H, T, T)
             big_neg = torch.finfo(scores.dtype).min
             scores = scores.masked_fill(~pad_mask[:, None, None, :], big_neg)
-            w = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+            if scores.dtype == torch.float32:
+                w = torch.softmax(scores, dim=-1)
+            else:  # jax.nn.softmax op by op, jnp.sum upcasting its reduction
+                e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+                w = e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(e.dtype)
             ctx = torch.matmul(w if mult is None else w * mult, v)
         return self.out(ctx.transpose(1, 2).reshape(B, T, D))
 
 
 class _SelfAttention(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, impl: str = "flax"):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, impl: str = "flax",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.ln = nn.LayerNorm(d_model, eps=_LN_EPS)
-        self.mha = _MultiHeadAttention(d_model, num_heads, dropout, impl)
+        self.ln = LayerNorm(d_model)
+        self.mha = _MultiHeadAttention(d_model, num_heads, dropout, impl, dtype)
 
     def forward(
         self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None
@@ -289,23 +439,43 @@ class _SelfAttention(nn.Module):
 class ConformerBlock(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        p = cfg.dropout
-        self.ffn1 = _FeedForward(cfg.d_model, cfg.ffn_dim, p)
-        self.attn = _SelfAttention(cfg.d_model, cfg.num_heads, p, cfg.attention_impl)
+        p, dt = cfg.dropout, cfg.dtype
+        # attention-only remat, unless the whole block is rematerialized
+        self.attn_remat = cfg.attn_remat and not cfg.remat
+        self.ffn1 = _FeedForward(cfg.d_model, cfg.ffn_dim, p, dt)
+        self.attn = _SelfAttention(cfg.d_model, cfg.num_heads, p, cfg.attention_impl, dt)
         self.conv = _ConvModule(
-            cfg.d_model, cfg.depthwise_conv_kernel_size, cfg.conv_norm, p, cfg.depthwise_impl
+            cfg.d_model, cfg.depthwise_conv_kernel_size, cfg.conv_norm, p, cfg.depthwise_impl, dt
         )
-        self.ffn2 = _FeedForward(cfg.d_model, cfg.ffn_dim, p)
-        self.final_ln = nn.LayerNorm(cfg.d_model, eps=_LN_EPS)
+        self.ffn2 = _FeedForward(cfg.d_model, cfg.ffn_dim, p, dt)
+        self.final_ln = LayerNorm(cfg.d_model)
 
     def forward(
         self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None
     ) -> torch.Tensor:
         x = x + 0.5 * self.ffn1(x, train, generator)
-        x = x + self.attn(x, pad_mask, train, generator)
+        if self.attn_remat and torch.is_grad_enabled():
+            x = x + _remat(lambda h: self.attn(h, pad_mask, train, generator), x, generator)
+        else:
+            x = x + self.attn(x, pad_mask, train, generator)
         x = x + self.conv(x, pad_mask, train, generator)
         x = x + 0.5 * self.ffn2(x, train, generator)
         return self.final_ln(x)
+
+
+_ATTN_REMAT_WARNED = False
+
+
+def _warn_attn_remat(cfg: EncoderConfig) -> None:
+    """The JAX package's warning, once a process, that ``attn_remat`` does
+    nothing under ``remat``."""
+    global _ATTN_REMAT_WARNED
+    if cfg.remat and cfg.attn_remat and not _ATTN_REMAT_WARNED:
+        _ATTN_REMAT_WARNED = True
+        logger.warning(
+            "attn_remat=True is subsumed by remat=True (the whole block "
+            "is rematerialized); the attention-only knob has no effect."
+        )
 
 
 class EMGConformerEncoder(nn.Module):
@@ -313,6 +483,7 @@ class EMGConformerEncoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
+        _warn_attn_remat(cfg)
         self.cfg = cfg
         self.subsample = Conv1dSubsampler(cfg)
         self.blocks = nn.ModuleList(ConformerBlock(cfg) for _ in range(cfg.num_layers))
@@ -331,8 +502,14 @@ class EMGConformerEncoder(nn.Module):
             lengths = torch.full((x.shape[0],), t_out * c.subsample_factor, device=x.device)
         out_lengths = torch.clamp(subsampled_lengths(lengths, c), 0, t_out)
         pad_mask = _length_mask(out_lengths, t_out)
+        if c.scan_layers:  # the JAX package's scan carry: fp32 into block_0
+            x = x.to(torch.float32)
         for block in self.blocks:
-            x = block(x, pad_mask, train, generator)
+            if c.remat and torch.is_grad_enabled():
+                x = _remat(functools.partial(block, pad_mask=pad_mask, train=train,
+                                             generator=generator), x, generator, c.remat_policy)
+            else:
+                x = block(x, pad_mask, train, generator)
         # zero padded frames: downstream decoders consume masked positions
         x = x.masked_fill(~pad_mask[:, :, None], 0.0)
         return x.float(), out_lengths

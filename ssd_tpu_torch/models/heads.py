@@ -1,7 +1,9 @@
 """Projection (distillation) and CTC heads (port of ``ssd_tpu/models/heads.py``).
 
-Projection = Dropout + Linear to the teacher dim (768); CTC head = Dropout +
-Linear to vocab + log-softmax in fp32. Dropout runs with ``train=True`` only.
+Projection = Dropout + Dense to the teacher dim (768); CTC head = Dropout +
+Dense to vocab + log-softmax in fp32. Dropout runs with ``train=True`` only.
+The Dense layers run in the encoder's compute dtype (flax ``dtype=``); both
+heads return fp32.
 """
 
 from __future__ import annotations
@@ -10,14 +12,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssd_tpu_torch.models.conformer import Dense
 from ssd_tpu_torch.ops.dropout import dropout
 
 
 class ProjectionHead(nn.Module):
-    def __init__(self, d_model: int, output_dim: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, output_dim: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.proj = nn.Linear(d_model, output_dim)
+        self.proj = Dense(d_model, output_dim, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         if train:
@@ -26,10 +30,11 @@ class ProjectionHead(nn.Module):
 
 
 class CTCHead(nn.Module):
-    def __init__(self, d_model: int, vocab_size: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, vocab_size: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.fc = nn.Linear(d_model, vocab_size)
+        self.fc = Dense(d_model, vocab_size, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         """(B, T, D) → (B, T, V) log-probs (fp32 — CTC numerics)."""

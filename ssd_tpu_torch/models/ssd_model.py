@@ -4,12 +4,16 @@
 ``build_model`` reads the same config keys with the same defaults and the
 same validation as the JAX package. ``attention_impl: fused`` and
 ``depthwise_impl: pallas`` select the port's fused attention and depthwise
-stencil (CUDA kernels on the card), with the same parameters. Values that
+stencil (CUDA kernels on the card), with the same parameters.
+``compute_dtype: bfloat16`` runs the encoder and both heads' Dense layers in
+bf16 the way the JAX package's flax ``dtype=`` does (parameters fp32,
+log-probs and the student representation fp32); ``remat``,
+``remat_policy`` and ``attn_remat`` rematerialize blocks in the backward;
+``scan_layers`` feeds the blocks an fp32 carry, as the JAX package's scan
+does (the weight bridge unstacks a ``scan_layers`` tree). Values that
 select a path the port does not have yet raise ``NotImplementedError``
-naming the ROADMAP item that will; memory and parallelism knobs that leave
-single-device inference math unchanged (``remat``, ``remat_policy``,
-``attn_remat``, ``sequence_parallel``, ``scan_layers``) are accepted and
-ignored — the weight bridge unstacks a ``scan_layers`` tree.
+naming the ROADMAP item that will; ``sequence_parallel``, a mesh
+annotation, is accepted and ignored on one device.
 """
 
 from __future__ import annotations
@@ -36,8 +40,10 @@ class SSDModel(nn.Module):
         self.encoder = EMGConformerEncoder(encoder_cfg)
         # the projection head drops with the encoder's rate, the CTC head
         # with model.ctc_dropout (ssd_tpu/models/ssd_model.py:33-44)
-        self.projection = ProjectionHead(encoder_cfg.d_model, projection_dim, encoder_cfg.dropout)
-        self.ctc_head = CTCHead(encoder_cfg.d_model, vocab_size, ctc_dropout)
+        dt = encoder_cfg.dtype
+        self.projection = ProjectionHead(
+            encoder_cfg.d_model, projection_dim, encoder_cfg.dropout, dt)
+        self.ctc_head = CTCHead(encoder_cfg.d_model, vocab_size, ctc_dropout, dt)
 
     def forward(
         self,
@@ -105,8 +111,6 @@ def build_model(cfg: Dict[str, Any], input_dim: int, vocab_size: int) -> SSDMode
         )
     if encoder_cfg.quantize != "none":
         raise _not_ported("quantize", encoder_cfg.quantize, "queue 1 item 9")
-    if encoder_cfg.compute_dtype == "bfloat16":
-        raise _not_ported("compute_dtype", "bfloat16", "queue 1 item 8")
     if encoder_cfg.pipeline_microbatches > 0:
         raise _not_ported(
             "pipeline_microbatches", encoder_cfg.pipeline_microbatches, "queue 1 item 10"

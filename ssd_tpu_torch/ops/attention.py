@@ -25,6 +25,16 @@ no fall back and no size gate: the JAX package routes a T whose per-cell
 buffers overflow the TPU's VMEM (``fits_in_vmem``) to flax's attention;
 a flash-tiled CUDA kernel has no such limit, so every T reaches the kernel.
 On the card no (T, T) tensor is stored for the backward.
+
+Two dtypes, as the Pallas kernels run in the model's compute dtype: fp32,
+and bf16 (``compute_dtype: bfloat16``). In bf16, q, k, v (and g, and the
+multiplier, built in bf16: ``1/0.9`` rounds to 1.109375) are bf16; every
+product takes them as they are and sums in fp32; the softmax, its row max
+and row sum stay fp32; the (multiplied) weights are rounded to bf16 before
+``·v``, and the backward rounds ``w ∘ mult`` and ``ds`` to bf16 before its
+products; out, dq, dk and dv are bf16. Each dtype has its own kernel
+instance and launch count (:data:`ATTN_FWD` / :data:`ATTN_FWD_BF16`,
+:data:`ATTN_BWD` / :data:`ATTN_BWD_BF16`); another dtype on the card raises.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from ssd_tpu_torch.utils.cuda_build import CudaKernel, CudaLibrary, check_cuda_tensor
+from ssd_tpu_torch.utils.cuda_build import CudaKernel, CudaLibrary, check_cuda_tensor, instance_for
 
 MASKED = -1e30  # score of a masked key, as in the Pallas kernel
 MAX_HEAD_DIM = 64  # the register tile's width in csrc/attention.cu (every config's hd fits)
@@ -49,9 +59,10 @@ MAX_HEAD_DIM = 64  # the register tile's width in csrc/attention.cu (every confi
 def _softmax_parts(q: torch.Tensor, k: torch.Tensor, key_mask: torch.Tensor) -> tuple:
     """The masked, scaled scores' exponentials ``e = exp(s − m)`` (B, H, T, T)
     with the row max ``m`` and the row sum ``l = Σ e`` (B, H, T, 1): what the
-    forward kernel keeps for the backward."""
+    forward kernel keeps for the backward. In fp32 whatever the inputs'
+    dtype: the products of bf16 q and k sum in fp32."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     s = s.masked_fill(key_mask[:, None, None, :] == 0, MASKED)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
@@ -64,6 +75,19 @@ def _weights(q: torch.Tensor, k: torch.Tensor, key_mask: torch.Tensor) -> torch.
     return e / l
 
 
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``x`` rounded to ``dtype`` and back: the value a product in
+    ``dtype`` takes (a no-op in fp32)."""
+    return x.to(dtype).float()
+
+
+def _weighted_values(w: torch.Tensor, mult: Optional[torch.Tensor], v: torch.Tensor) -> torch.Tensor:
+    """``(w ∘ mult)·v`` in fp32, the weights rounded to v's dtype first."""
+    if mult is not None:
+        w = w * mult.float()
+    return torch.matmul(_rounded(w, v.dtype), v.float())
+
+
 def fused_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -72,11 +96,8 @@ def fused_attention_plain(
     mult: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``_attn_fwd_kernel``: q, k, v (B, H, T, hd), key_mask (B, T) (nonzero
-    = valid), mult (T, T) or None → (B, H, T, hd)."""
-    w = _weights(q, k, key_mask)
-    if mult is not None:
-        w = w * mult
-    return torch.matmul(w, v)
+    = valid), mult (T, T) or None → (B, H, T, hd) in q's dtype."""
+    return _weighted_values(_weights(q, k, key_mask), mult, v).to(q.dtype)
 
 
 def fused_attention_bwd_plain(
@@ -89,16 +110,22 @@ def fused_attention_bwd_plain(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``_attn_bwd_kernel``: the recomputed softmax w, then
     dv = (w∘mult)ᵀ·g, ds = w∘(dW − Σ dW∘w)·scale with dW = (g·vᵀ)∘mult,
-    dq = ds·k, dk = dsᵀ·q."""
+    dq = ds·k, dk = dsᵀ·q; in fp32, with ``w∘mult`` and ``ds`` rounded to
+    q's dtype before their products, and the gradients in q's dtype."""
+    dt = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     w = _weights(q, k, key_mask)
-    wd = w * mult if mult is not None else w
-    dv = torch.matmul(wd.transpose(-1, -2), g)
-    dw = torch.matmul(g, v.transpose(-1, -2))
-    if mult is not None:
-        dw = dw * mult
-    ds = w * (dw - (dw * w).sum(dim=-1, keepdim=True)) * scale
-    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+    m = mult.float() if mult is not None else None
+    wd = w * m if m is not None else w
+    gf = g.float()
+    dv = torch.matmul(_rounded(wd, dt).transpose(-1, -2), gf)
+    dw = torch.matmul(gf, v.float().transpose(-1, -2))
+    if m is not None:
+        dw = dw * m
+    ds = _rounded(w * (dw - (dw * w).sum(dim=-1, keepdim=True)) * scale, dt)
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -116,33 +143,39 @@ _ATTN_LIBRARY = CudaLibrary(
     {
         "ssd_attn_fwd_launch": ([_P] * 8 + [_S, _I, _I, _I, _I, _F, _P], _I),
         "ssd_attn_bwd_launch": ([_P] * 13 + [_S, _I, _I, _I, _I, _F, _P], _I),
+        "ssd_attn_fwd_bf16_launch": ([_P] * 8 + [_S, _I, _I, _I, _I, _F, _P], _I),
+        "ssd_attn_bwd_bf16_launch": ([_P] * 13 + [_S, _I, _I, _I, _I, _F, _P], _I),
     },
     error_string="ssd_attn_error_string",
 )
 
 
-def _check_view(name: str, t: torch.Tensor, shape: tuple, device) -> list:
-    """A (B, H, T, hd) fp32 view read in place: any (b, h, t) strides, unit
-    stride along hd (the kernels never copy). Returns its (b, h, t) strides."""
-    check_cuda_tensor(name, t, shape, device=device, contiguous=False)
+def _check_view(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> list:
+    """A (B, H, T, hd) view of ``dtype`` read in place: any (b, h, t)
+    strides, unit stride along hd (the kernels never copy). Returns its
+    (b, h, t) strides."""
+    check_cuda_tensor(name, t, shape, dtype, device, contiguous=False)
     if t.stride(-1) != 1:
         raise ValueError(f"{name} must have unit stride along hd (got strides {t.stride()})")
     return list(t.stride()[:3])
 
 
 def _empty_like_heads(q: torch.Tensor) -> torch.Tensor:
-    """(B, H, T, hd) view of (B, T, H, hd) storage: the layout the output
-    projection reads without a copy."""
+    """(B, H, T, hd) view of (B, T, H, hd) storage, in q's dtype: the
+    layout the output projection reads without a copy."""
     B, H, T, hd = q.shape
-    return torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device).transpose(1, 2)
+    return torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+
 
 
 class _AttentionKernel(CudaKernel):
-    """Shared checks of the two wrappers; launch and count are
+    """Shared checks of the two wrappers, for the kernel instance of one
+    dtype (q, k, v, g, the outputs and the multiplier; the key mask is
+    int32, the row statistics fp32); launch and count are
     :class:`CudaKernel`'s (the backward's two kernels are one launch call)."""
 
-    def __init__(self) -> None:
-        super().__init__(_ATTN_LIBRARY)
+    def __init__(self, dtype: torch.dtype) -> None:
+        super().__init__(_ATTN_LIBRARY, dtype)
 
     def _inputs(self, q, k, v, key_mask, mult) -> tuple:
         if q.dim() != 4 or min(q.shape) < 1:
@@ -151,12 +184,12 @@ class _AttentionKernel(CudaKernel):
         B, H, T, hd = shape
         dev = q.device
         strides = [s for name, t in (("q", q), ("k", k), ("v", v))
-                   for s in _check_view(name, t, shape, dev)]
+                   for s in _check_view(name, t, shape, self.dtype, dev)]
         if hd > MAX_HEAD_DIM:
             raise ValueError(f"the attention kernels take hd ≤ {MAX_HEAD_DIM}, got {hd}")
         check_cuda_tensor("key_mask", key_mask, (B, T), torch.int32, dev)
         if mult is not None:
-            check_cuda_tensor("mult", mult, (T, T), device=dev)
+            check_cuda_tensor("mult", mult, (T, T), self.dtype, dev)
         return shape, strides
 
 
@@ -166,9 +199,10 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 class AttentionFwdKernel(_AttentionKernel):
     """Forward of ``csrc/attention.cu`` (replaces ``_attn_fwd_kernel``):
-    q, k, v (B, H, T, hd) fp32 views, key_mask (B, T) int32, mult (T, T) or
-    None → out (B, H, T, hd) (a view of (B, T, H, hd) storage) and the row
-    max and row sum (B, H, T) that the backward recomputes the softmax from."""
+    q, k, v (B, H, T, hd) views, key_mask (B, T) int32, mult (T, T) or
+    None → out (B, H, T, hd) (a view of (B, T, H, hd) storage) and the fp32
+    row max and row sum (B, H, T) that the backward recomputes the softmax
+    from."""
 
     def __call__(self, q, k, v, key_mask, mult=None):
         (B, H, T, hd), strides = self._inputs(q, k, v, key_mask, mult)
@@ -177,7 +211,7 @@ class AttentionFwdKernel(_AttentionKernel):
         row_sum = torch.empty_like(row_max)
         strides += list(out.stride()[:3])
         self.launch(
-            "ssd_attn_fwd_launch", q.device,
+            self.entry("ssd_attn_fwd"), q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), _ptr(mult),
             out.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
             (ctypes.c_longlong * 12)(*strides), B, H, T, hd, 1.0 / math.sqrt(hd),
@@ -193,7 +227,7 @@ class AttentionBwdKernel(_AttentionKernel):
     def __call__(self, q, k, v, out, g, row_max, row_sum, key_mask, mult=None):
         (B, H, T, hd), strides = self._inputs(q, k, v, key_mask, mult)
         for name, t in (("out", out), ("g", g)):
-            strides += _check_view(name, t, (B, H, T, hd), q.device)
+            strides += _check_view(name, t, (B, H, T, hd), self.dtype, q.device)
         for name, t in (("row_max", row_max), ("row_sum", row_sum)):
             check_cuda_tensor(name, t, (B, H, T), device=q.device)
         grads = [_empty_like_heads(q) for _ in range(3)]
@@ -202,7 +236,7 @@ class AttentionBwdKernel(_AttentionKernel):
         delta = torch.empty_like(row_max)
         dq, dk, dv = grads
         self.launch(
-            "ssd_attn_bwd_launch", q.device,
+            self.entry("ssd_attn_bwd"), q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
             key_mask.data_ptr(), _ptr(mult), row_max.data_ptr(), row_sum.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -211,8 +245,11 @@ class AttentionBwdKernel(_AttentionKernel):
         return dq, dk, dv
 
 
-ATTN_FWD = AttentionFwdKernel()
-ATTN_BWD = AttentionBwdKernel()
+ATTN_FWD = AttentionFwdKernel(torch.float32)
+ATTN_BWD = AttentionBwdKernel(torch.float32)
+ATTN_FWD_BF16 = AttentionFwdKernel(torch.bfloat16)
+ATTN_BWD_BF16 = AttentionBwdKernel(torch.bfloat16)
+_FWD, _BWD = (ATTN_FWD, ATTN_FWD_BF16), (ATTN_BWD, ATTN_BWD_BF16)
 
 
 # --------------------------------------------------------------------------
@@ -228,15 +265,14 @@ ATTN_BWD = AttentionBwdKernel()
 )
 def _attention_fwd_op(q, k, v, key_mask, mult):
     e, m, l = _softmax_parts(q, k, key_mask)
-    w = e / l
     out = _empty_like_heads(q)
-    out.copy_(torch.matmul(w if mult is None else w * mult, v))
+    out.copy_(_weighted_values(e / l, mult, v))
     return out, m[..., 0], l[..., 0]
 
 
 @_attention_fwd_op.register_kernel("cuda")
 def _attention_fwd_cuda(q, k, v, key_mask, mult):
-    return ATTN_FWD(q, k, v, key_mask, mult)
+    return instance_for(_FWD, "q", q)(q, k, v, key_mask, mult)
 
 
 @_attention_fwd_op.register_fake
@@ -264,7 +300,8 @@ class _FusedAttention(torch.autograd.Function):
         else:
             if g.stride(-1) != 1:  # autograd may hand over any layout
                 g = g.contiguous()
-            dq, dk, dv = ATTN_BWD(q, k, v, out, g, row_max, row_sum, key_mask, mult)
+            dq, dk, dv = instance_for(_BWD, "q", q)(q, k, v, out, g, row_max, row_sum, key_mask,
+                                                    mult)
         return dq, dk, dv, None, None
 
 
@@ -277,8 +314,9 @@ def fused_attention(
 ) -> torch.Tensor:
     """softmax(q·kᵀ·hd^-½, keys masked at −1e30)[∘ mult]·v.
 
-    q, k, v: (B, H, T, hd) fp32 (strided views are read in place);
-    key_mask: (B, T), nonzero or True = a valid key; mult: the (T, T)
-    dropout multiplier shared by every batch row and head, or None.
+    q, k, v: (B, H, T, hd), fp32 or bf16 (strided views are read in
+    place); key_mask: (B, T), nonzero or True = a valid key; mult: the
+    (T, T) dropout multiplier in q's dtype, shared by every batch row and
+    head, or None. The output is in q's dtype.
     """
     return _FusedAttention.apply(q, k, v, key_mask.to(torch.int32).contiguous(), mult)

@@ -19,6 +19,16 @@ the plain versions :func:`depthwise_conv1d_plain` /
 implementation), so that a captured graph (``torch.export``) holds it as one
 node; the backward, which no exported graph reaches, dispatches in Python.
 There is no fall back: a CUDA tensor reaches the kernel or raises.
+
+Two dtypes, as the JAX package's ``DepthwiseConv1d`` runs in the model's
+compute dtype: fp32, and bf16 (``compute_dtype: bfloat16``), where x, w and
+b are bf16, each tap's product is rounded to bf16 before the fp32 sum (the
+Pallas kernel forms ``src * w[j]`` in bf16), y and dx are bf16, and dw and
+db — fp32 sums — are rounded to bf16, the dtype of the w and b the op was
+given, as the JAX VJP casts them (autograd then upcasts them to the fp32
+parameters). Each dtype has its own kernel instance and its own launch
+count (:data:`DW_FWD` / :data:`DW_FWD_BF16`, :data:`DW_BWD` /
+:data:`DW_BWD_BF16`); another dtype on the card raises.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ssd_tpu_torch.utils.cuda_build import CudaKernel, CudaLibrary, check_cuda_tensor
+from ssd_tpu_torch.utils.cuda_build import CudaKernel, CudaLibrary, check_cuda_tensor, instance_for
 
 
 def _check_odd(K: int) -> None:
@@ -43,7 +53,9 @@ def _check_odd(K: int) -> None:
 
 def depthwise_conv1d_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``_fwd_kernel``: x (B, T, C), w (K, C), b (C,) → (B, T, C); the bias
-    starts the sum and the taps add in order j = 0 … K − 1."""
+    starts the sum and the taps add in order j = 0 … K − 1, in fp32. Each
+    product ``x · w[j]`` is formed in the inputs' dtype (in bf16: rounded)
+    and type promotion adds it to the fp32 sum."""
     K = w.shape[0]
     _check_odd(K)
     T = x.shape[1]
@@ -58,8 +70,10 @@ def depthwise_conv1d_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) ->
 def depthwise_conv1d_bwd_plain(
     x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``_bwd_kernel``: dx (B, T, C) — tap j adds ``w[j] · g[t + pad − j]`` —
-    and the per-batch dw partials (B, K, C), ``Σ_t g[t] · x[t + j − pad]``."""
+    """``_bwd_kernel``: dx (B, T, C) — tap j adds ``w[j] · g[t + pad − j]``,
+    a product in the inputs' dtype, to an fp32 sum — and the per-batch fp32
+    dw partials (B, K, C), ``Σ_t g[t] · x[t + j − pad]`` of the upcast
+    values."""
     K = w.shape[0]
     _check_odd(K)
     T = x.shape[1]
@@ -69,7 +83,8 @@ def depthwise_conv1d_bwd_plain(
     dx = torch.zeros_like(x, dtype=torch.float32)
     for j in range(K):
         dx = dx + gp[:, 2 * pad - j : 2 * pad - j + T] * w[j]
-    dwp = torch.stack([(g * xp[:, j : j + T]).sum(dim=1) for j in range(K)], dim=1)
+    gf, xpf = g.to(torch.float32), xp.to(torch.float32)
+    dwp = torch.stack([(gf * xpf[:, j : j + T]).sum(dim=1) for j in range(K)], dim=1)
     return dx.to(x.dtype), dwp
 
 
@@ -87,8 +102,10 @@ _DW_LIBRARY = CudaLibrary(
     "depthwise_conv.cu",
     {
         "ssd_dw_fwd_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "ssd_dw_fwd_bf16_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "ssd_dw_fwd_ctas": ([_I, _I, _I], _I),
         "ssd_dw_bwd_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "ssd_dw_bwd_bf16_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "ssd_dw_bwd_strips": ([_I, _I, _I, _I], _I),
     },
     error_string="ssd_dw_error_string",
@@ -96,11 +113,11 @@ _DW_LIBRARY = CudaLibrary(
 
 
 class _DepthwiseKernel(CudaKernel):
-    """Shared checks of the two wrappers; launch and count are
-    :class:`CudaKernel`'s."""
+    """Shared checks of the two wrappers, for the kernel instance of one
+    dtype; launch and count are :class:`CudaKernel`'s."""
 
-    def __init__(self) -> None:
-        super().__init__(_DW_LIBRARY)
+    def __init__(self, dtype: torch.dtype) -> None:
+        super().__init__(_DW_LIBRARY, dtype)
 
     def _shapes(self, x: torch.Tensor, w: torch.Tensor) -> tuple:
         if x.dim() != 3 or min(x.shape) < 1:
@@ -109,8 +126,8 @@ class _DepthwiseKernel(CudaKernel):
         if w.dim() != 2 or w.shape[1] != C:
             raise ValueError(f"w must be (K, C={C}), got {tuple(w.shape)}")
         K = w.shape[0]
-        check_cuda_tensor("x", x, (B, T, C))
-        check_cuda_tensor("w", w, (K, C), device=x.device)
+        check_cuda_tensor("x", x, (B, T, C), self.dtype)
+        check_cuda_tensor("w", w, (K, C), self.dtype, x.device)
         _check_odd(K)
         if K > MAX_KERNEL_SIZE:
             raise ValueError(f"the depthwise kernels take K ≤ {MAX_KERNEL_SIZE}, got K={K}")
@@ -119,41 +136,45 @@ class _DepthwiseKernel(CudaKernel):
 
 class DepthwiseFwdKernel(_DepthwiseKernel):
     """Forward stencil of ``csrc/depthwise_conv.cu`` (replaces ``_fwd_kernel``):
-    x (B, T, C), w (K, C), b (C,) → y (B, T, C); a thread computes 16 rows
-    of one channel from a window of 16 + K − 1 rows it loads into
-    registers."""
+    x (B, T, C), w (K, C), b (C,) → y (B, T, C), all of the instance's
+    dtype; a thread computes 16 rows of one channel from a window of
+    16 + K − 1 rows it loads into registers."""
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         B, T, C, K = self._shapes(x, w)
-        check_cuda_tensor("b", b, (C,), device=x.device)
+        check_cuda_tensor("b", b, (C,), self.dtype, x.device)
         y = torch.empty_like(x)
-        self.launch("ssd_dw_fwd_launch", x.device,
+        self.launch(self.entry("ssd_dw_fwd"), x.device,
                      x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, T, C, K)
         return y
 
 
 class DepthwiseBwdKernel(_DepthwiseKernel):
     """Backward of ``csrc/depthwise_conv.cu`` (replaces ``_bwd_kernel``):
-    x, w and the output gradient g → dx (B, T, C) and the partials
-    (B, strips, K + 1, C), one per (batch row, strip of 64-row time tiles):
+    x, w and the output gradient g (the instance's dtype) → dx (B, T, C)
+    and the fp32 partials (B, strips, K + 1, C), one per (batch row, strip
+    of 64-row time tiles):
     rows 0 … K − 1 the dw partials ``Σ_t g[t] · x[t + j − pad]``, row K the
     db partial ``Σ_t g[t]``. The kernel picks the strip count for the
     card's SM count."""
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
         B, T, C, K = self._shapes(x, w)
-        check_cuda_tensor("g", g, (B, T, C), device=x.device)
+        check_cuda_tensor("g", g, (B, T, C), self.dtype, x.device)
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         strips = self.library.load().ssd_dw_bwd_strips(B, T, C, sms)
         dx = torch.empty_like(x)
         part = torch.empty((B, strips, K + 1, C), dtype=torch.float32, device=x.device)
-        self.launch("ssd_dw_bwd_launch", x.device, x.data_ptr(), w.data_ptr(), g.data_ptr(),
+        self.launch(self.entry("ssd_dw_bwd"), x.device, x.data_ptr(), w.data_ptr(), g.data_ptr(),
                      dx.data_ptr(), part.data_ptr(), B, T, C, K, strips)
         return dx, part
 
 
-DW_FWD = DepthwiseFwdKernel()
-DW_BWD = DepthwiseBwdKernel()
+DW_FWD = DepthwiseFwdKernel(torch.float32)
+DW_BWD = DepthwiseBwdKernel(torch.float32)
+DW_FWD_BF16 = DepthwiseFwdKernel(torch.bfloat16)
+DW_BWD_BF16 = DepthwiseBwdKernel(torch.bfloat16)
+_FWD, _BWD = (DW_FWD, DW_FWD_BF16), (DW_BWD, DW_BWD_BF16)
 
 
 # --------------------------------------------------------------------------
@@ -172,7 +193,7 @@ def _depthwise_fwd_op(x, w, b):
 
 @_depthwise_fwd_op.register_kernel("cuda")
 def _depthwise_fwd_cuda(x, w, b):
-    return DW_FWD(x, w, b)
+    return instance_for(_FWD, "x", x)(x, w, b)
 
 
 @_depthwise_fwd_op.register_fake
@@ -181,11 +202,13 @@ def _depthwise_fwd_fake(x, w, b):
 
 
 class _DepthwiseConv1d(torch.autograd.Function):
-    """``depthwise_conv1d``'s custom VJP (``_dw_fwd`` / ``_dw_bwd``)."""
+    """``depthwise_conv1d``'s custom VJP (``_dw_fwd`` / ``_dw_bwd``): dx in
+    x's dtype, dw and db rounded to w's and b's."""
 
     @staticmethod
     def forward(ctx, x, w, b):
         ctx.save_for_backward(x, w)
+        ctx.b_dtype = b.dtype
         return torch.ops.ssd_tpu_torch.depthwise_fwd(x, w, b)
 
     @staticmethod
@@ -196,17 +219,20 @@ class _DepthwiseConv1d(torch.autograd.Function):
             dw, db = dwp.sum(dim=0), g.to(torch.float32).sum(dim=(0, 1))
         else:
             # autograd may hand over any layout; the kernel takes (B, T, C) rows
-            dx, part = DW_BWD(x, w, g.contiguous())
+            dx, part = instance_for(_BWD, "x", x)(x, w, g.contiguous())
             sums = part.sum(dim=(0, 1))  # (K + 1, C): dw's K rows, then db
             dw, db = sums[:-1], sums[-1]
-        return dx, dw.to(w.dtype), db
+        return dx, dw.to(w.dtype), db.to(ctx.b_dtype)
 
 
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """'SAME'-padded depthwise conv: x (B, T, C), w (K, C), b (C,) → (B, T, C).
+    """'SAME'-padded depthwise conv: x (B, T, C), w (K, C), b (C,) → (B, T, C),
+    all fp32 or all bf16.
 
-    Odd K only (``ValueError`` otherwise). CUDA tensors → :data:`DW_FWD` and,
-    in the backward, :data:`DW_BWD`; CPU tensors → the plain versions.
+    Odd K only (``ValueError`` otherwise). CUDA tensors → the kernel instance
+    of their dtype (:data:`DW_FWD` / :data:`DW_FWD_BF16` and, in the
+    backward, :data:`DW_BWD` / :data:`DW_BWD_BF16`); CPU tensors → the plain
+    versions.
     """
     _check_odd(w.shape[0])
     return _DepthwiseConv1d.apply(x, w, b)

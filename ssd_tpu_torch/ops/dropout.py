@@ -2,7 +2,8 @@
 semantics of ``ssd_tpu/ops/dropout.py:FastDropout``).
 
 Keep each element with probability ``1 − rate`` and scale kept values by
-``1/(1 − rate)``. The mask is drawn from the caller's ``torch.Generator``
+``1/(1 − rate)``, the scale in the tensor's dtype as ``FastDropout`` builds
+it (in bf16, 1/0.9 rounds to 1.109375). The mask is drawn from the caller's ``torch.Generator``
 on the tensor's device, so a training run's dropout stream is one seeded
 generator. The JAX package regenerates its mask from the key in the
 backward pass (a custom VJP that saves HBM traffic on a TPU); here autograd

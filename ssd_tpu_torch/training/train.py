@@ -12,7 +12,11 @@ distillation-λ warmup, strict=False warm starts and ``--resume``.
 One step on one device: the featurizer (raw-EMG mode, through the CUDA
 log-mel kernel), on-device augmentation, the encoder, both heads, CTC
 (through the CUDA α/β kernels) and distillation MSE, backward, then clip +
-AdamW through :class:`~ssd_tpu_torch.training.schedules.Optimizer`. Dropout
+AdamW through :class:`~ssd_tpu_torch.training.schedules.Optimizer`. The
+encoder computes in ``model.encoder.compute_dtype`` (fp32 or bf16, the
+parameters fp32) and rematerializes as ``remat`` / ``attn_remat`` say;
+``data.teacher_dtype`` / ``emg_dtype: bfloat16`` move those batch arrays
+as bf16. Dropout
 and on-device augmentation draw from one ``torch.Generator`` on the device,
 seeded with ``logging.seed + 1``; the model is initialized by
 ``init_flax_style`` from a generator seeded with ``logging.seed``.
@@ -92,7 +96,16 @@ def batch_to_arrays(batch: Batch, include_teacher: bool) -> Dict[str, np.ndarray
 
 
 def to_device(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
+    """numpy batch → tensors on ``device``; uint16 arrays are the loader's bf16
+    bit patterns (``data.teacher_dtype`` / ``emg_dtype: bfloat16``) and
+    arrive as bfloat16."""
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if v.dtype == np.uint16:
+            t = t.view(torch.bfloat16)
+        out[k] = t.to(device)
+    return out
 
 
 def _losses(
@@ -340,7 +353,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_slice(cfg: Dict[str, Any]) -> None:
-    """Refuse config values outside this slice; log the ignored knobs."""
+    """Refuse config values outside the port, and ``data.emg_dtype:
+    bfloat16`` without a bf16 encoder (the JAX trainer's check)."""
     par = cfg.get("parallel") or {}
     if int(par.get("model", 1)) > 1:
         raise _not_ported(f"parallel.model={par['model']}", "queue 1 item 10")
@@ -359,16 +373,14 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
         raise _not_ported(f"model.encoder.quantize={enc['quantize']!r}", "queue 1 item 9")
     for key in ("emg_dtype", "teacher_dtype"):
         name = str(cfg["data"].get(key, "float32"))
-        if name == "bfloat16":
-            raise _not_ported(f"data.{key}: bfloat16", "queue 1 item 8")
-        if name != "float32":
+        if name not in ("float32", "bfloat16"):
             raise ValueError(f"data.{key} must be float32|bfloat16, got {name}")
-    ignored = [k for k in ("remat", "attn_remat", "scan_layers") if enc.get(k)]
-    if ignored or "remat_policy" in enc:
-        logger.info(
-            "model.encoder %s change memory, not the math, on one device: ignored",
-            ", ".join(ignored + (["remat_policy"] if "remat_policy" in enc else [])),
-        )
+    if str(cfg["data"].get("emg_dtype", "float32")) == "bfloat16":
+        if enc.get("compute_dtype", "float32") != "bfloat16":
+            raise ValueError(
+                "data.emg_dtype: bfloat16 requires model.encoder.compute_dtype: "
+                "bfloat16 (otherwise it silently changes training numerics)"
+            )
 
 
 def train_from_config(
@@ -428,6 +440,11 @@ def train_from_config(
         strict=teacher_strict,
         raw=train_from_raw,
         raw_hop_length=featurize.hop_length if featurize else 10,
+        # bf16 halves the host copy and host→device bytes of these arrays;
+        # the distillation loss upcasts the teacher, the encoder casts its
+        # input to its compute dtype
+        teacher_dtype=str(cfg["data"].get("teacher_dtype", "float32")),
+        emg_dtype=str(cfg["data"].get("emg_dtype", "float32")),
     )
     train_loader = make_dataloader(
         splits=cfg["data"]["train_splits"],

@@ -10,7 +10,9 @@ runs at the first launch.
 
 :class:`CudaKernel` is what every kernel wrapper shares: the launch on the
 current stream, the error check after it and the count of launches;
-:func:`check_cuda_tensor` the checks a wrapper makes before it.
+:func:`check_cuda_tensor` the checks a wrapper makes before it;
+:func:`instance_for` the choice among a kernel's instances, one per dtype
+(C entry points ``…_launch`` for fp32, ``…_bf16_launch`` for bf16).
 """
 
 from __future__ import annotations
@@ -104,18 +106,28 @@ class CudaLibrary:
         os.replace(tmp, path)  # atomic: a concurrent build never loads a partial .so
 
 
+# the C entry points' suffix for each dtype a kernel is instantiated for
+DTYPE_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
 class CudaKernel:
     """A kernel wrapper's launch: ``fn(*args, stream)`` from ``library`` on
     the current stream of ``device``, a ``RuntimeError`` when it returns a
     CUDA error (a refused launch never runs, and no later synchronize would
     report it), and ``launches``, a plain integer incremented once per
     successful launch call and nowhere else, so a run can show that the
-    main path reached the kernel.
+    main path reached the kernel. ``dtype``: the element type of the
+    instance the wrapper launches.
     """
 
-    def __init__(self, library: CudaLibrary) -> None:
+    def __init__(self, library: CudaLibrary, dtype: torch.dtype = torch.float32) -> None:
         self.library = library
+        self.dtype = dtype
         self.launches = 0
+
+    def entry(self, base: str) -> str:
+        """The C entry point of this instance: ``base`` + dtype suffix + ``_launch``."""
+        return f"{base}{DTYPE_SUFFIX[self.dtype]}_launch"
 
     def launch(self, fn: str, device: torch.device, *args) -> None:
         lib = self.library.load()
@@ -128,22 +140,33 @@ class CudaKernel:
         self.launches += 1
 
 
+def instance_for(kernels: Sequence[CudaKernel], name: str, t: torch.Tensor) -> CudaKernel:
+    """The instance among ``kernels`` built for ``t``'s dtype; a CUDA tensor
+    of another dtype raises (there is no fallback to another instance)."""
+    by_dtype = {k.dtype: k for k in kernels}
+    check_cuda_tensor(name, t, tuple(t.shape), tuple(by_dtype), contiguous=False)
+    return by_dtype[t.dtype]
+
+
 def check_cuda_tensor(
     name: str,
     t: torch.Tensor,
     shape: tuple,
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype | tuple = torch.float32,
     device: Optional[torch.device] = None,
     contiguous: bool = True,
 ) -> None:
     """Raise unless ``t`` is a CUDA tensor (on ``device``, when given) of
-    ``shape`` and ``dtype`` (and contiguous, when asked)."""
+    ``shape`` and ``dtype`` — or of one of the dtypes, when ``dtype`` is a
+    tuple — (and contiguous, when asked)."""
+    allowed = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dtype not in allowed:
+        want = allowed[0] if len(allowed) == 1 else " or ".join(map(str, allowed))
+        raise TypeError(f"{name} must be {want}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if contiguous and not t.is_contiguous():

@@ -299,6 +299,127 @@ def test_attention_and_depthwise_wrappers_reject_bad_cuda_input(cuda):
         dwc.DW_BWD(x, torch.zeros((33, 8), device=cuda), x)
 
 
+# ------------------------------------------------ bf16 instances
+
+# bf16: the attention kernels round p ∘ μ before dividing by the row sum
+# where the plain version rounds the normalised weights, and sum their
+# products on the tensor cores: within a few bf16 roundings of each output's
+# largest magnitude; the depthwise forward and dx are bit-equal
+ATTN_BF16_REL = 2.0**-6
+DW_BF16_SUM_REL = 1e-4  # dw and db (fp32 partials) of the tensor's max-abs
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "B,T,C,K",
+    [(32, 384, 768, 15), (8, 625, 768, 15), (5, 640, 288, 15), (2, 37, 40, 3),
+     (3, 100, 50, 31),  # C 50: not a multiple of 8, the bf16 ring's element copies
+     (2, 1, 768, 15), (3, 65, 768, 31)],
+)
+def test_depthwise_bf16_kernels_match_plain(cuda, B, T, C, K):
+    gen = torch.Generator().manual_seed(T + C)
+    x, g = (_bf16(torch.randn((B, T, C), generator=gen)).to(cuda) for _ in range(2))
+    w, b = (_bf16(torch.randn(s, generator=gen) / 4).to(cuda) for s in ((K, C), (C,)))
+    before = (dwc.DW_FWD_BF16.launches, dwc.DW_BWD_BF16.launches, dwc.DW_FWD.launches)
+    y = dwc.DW_FWD_BF16(x, w, b)
+    dx, part = dwc.DW_BWD_BF16(x, w, g)
+    torch.cuda.synchronize()
+    assert (dwc.DW_FWD_BF16.launches, dwc.DW_BWD_BF16.launches, dwc.DW_FWD.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert y.dtype == dx.dtype == torch.bfloat16 and part.dtype == torch.float32
+    # each tap's product rounded to bf16, then the unfused fp32 chain: bit-equal
+    assert torch.equal(y, dwc.depthwise_conv1d_plain(x, w, b))
+    want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, g)
+    assert torch.equal(dx, want_dx)
+    sums = part.sum(dim=(0, 1))
+    for got, want in ((sums[:K], want_dwp.sum(dim=0)), (sums[K], g.float().sum(dim=(0, 1)))):
+        torch.testing.assert_close(got, want, rtol=0, atol=DW_BF16_SUM_REL * float(want.abs().max()))
+    dx2, part2 = dwc.DW_BWD_BF16(x, w, g)
+    assert torch.equal(dx, dx2) and torch.equal(part, part2)
+    # the op: dw and db rounded to the bf16 of w and b
+    xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+    grads = torch.autograd.grad(dwc.depthwise_conv1d(xr, wr, br), (xr, wr, br), g)
+    for got, want in zip(grads, (dx, sums[:K].to(torch.bfloat16), sums[K].to(torch.bfloat16))):
+        assert torch.equal(got, want)
+
+
+def test_depthwise_bf16_takes_misaligned_rows(cuda):
+    """x and g 2 bytes off a 16-byte boundary: element copies into the ring
+    and the forward's element loads."""
+    gen = torch.Generator().manual_seed(2)
+    B, T, C, K = 2, 130, 64, 15
+    x, g = (_bf16(torch.randn((B * T * C + 1,), generator=gen)).to(cuda)[1:].view(B, T, C)
+            for _ in range(2))
+    assert x.data_ptr() % 16 != 0
+    w, b = (_bf16(torch.randn(s, generator=gen) / 4).to(cuda) for s in ((K, C), (C,)))
+    assert torch.equal(dwc.DW_FWD_BF16(x, w, b), dwc.depthwise_conv1d_plain(x, w, b))
+    dx, part = dwc.DW_BWD_BF16(x, w, g)
+    want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, g)
+    assert torch.equal(dx, want_dx)
+    want_dw = want_dwp.sum(dim=0)
+    torch.testing.assert_close(part.sum(dim=(0, 1))[:K], want_dw, rtol=0,
+                               atol=DW_BF16_SUM_REL * float(want_dw.abs().max()))
+
+
+@pytest.mark.parametrize(
+    "B,T,H,hd,drop",
+    [(32, 384, 12, 64, True),  # tpu_scaled_large's training shape
+     (8, 625, 12, 64, False),  # … and its serving bucket
+     (5, 640, 6, 48, True), (2, 1, 12, 64, False), (3, 65, 6, 48, True),
+     (2, 70, 2, 16, True),  # T % 8 ≠ 0: the multiplier's element copies
+     (2, 130, 3, 20, True),  # hd 20 ≢ 0 (mod 8): the rows' element copies
+     (2, 37, 2, 64, False)],
+)
+def test_attention_bf16_kernels_match_plain(cuda, B, T, H, hd, drop):
+    q, k, v, g, mask, mult = _attn_case(B, T, H, hd, cuda, drop)
+    q, k, v, g = (_bf16(t) for t in (q, k, v, g))
+    mult = None if mult is None else _bf16(mult)
+    before = (attn.ATTN_FWD_BF16.launches, attn.ATTN_BWD_BF16.launches, attn.ATTN_FWD.launches)
+    out, row_max, row_sum = attn.ATTN_FWD_BF16(q, k, v, mask, mult)
+    grads = attn.ATTN_BWD_BF16(q, k, v, out, g, row_max, row_sum, mask, mult)
+    torch.cuda.synchronize()
+    assert (attn.ATTN_FWD_BF16.launches, attn.ATTN_BWD_BF16.launches, attn.ATTN_FWD.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert out.dtype == torch.bfloat16 and row_max.dtype == row_sum.dtype == torch.float32
+    want = (attn.fused_attention_plain(q, k, v, mask, mult),
+            *attn.fused_attention_bwd_plain(q, k, v, mask, mult, g))
+    for name, got, w in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
+        assert got.dtype == torch.bfloat16, name
+        w = w.float()
+        torch.testing.assert_close(got.float(), w, rtol=0,
+                                   atol=ATTN_BF16_REL * float(w.abs().max()), msg=name)
+    pad = mask[:, None, :, None] == 0
+    assert bool((grads[1].masked_select(pad) == 0).all() and (grads[2].masked_select(pad) == 0).all())
+    again = attn.ATTN_BWD_BF16(q, k, v, out, g, row_max, row_sum, mask, mult)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, again):
+        assert torch.equal(a, b), name
+
+
+def test_bf16_ops_reach_the_bf16_instances(cuda):
+    """The custom ops and autograd Functions pick the kernel instance of the
+    tensors' dtype; another dtype, or a bf16 input with an fp32 partner,
+    raises — there is no fallback to the fp32 instance."""
+    q, k, v, g, mask, _ = _attn_case(2, 64, 2, 64, cuda, False)
+    qb, kb, vb = (_bf16(t).requires_grad_(True) for t in (q, k, v))
+    before = {w: w.launches for w in (attn.ATTN_FWD, attn.ATTN_FWD_BF16, attn.ATTN_BWD_BF16)}
+    attn.fused_attention(qb, kb, vb, mask).backward(_bf16(g))
+    assert attn.ATTN_FWD.launches == before[attn.ATTN_FWD]
+    assert attn.ATTN_FWD_BF16.launches == before[attn.ATTN_FWD_BF16] + 1
+    assert attn.ATTN_BWD_BF16.launches == before[attn.ATTN_BWD_BF16] + 1
+    with pytest.raises(TypeError):
+        attn.fused_attention(q.half(), k.half(), v.half(), mask)
+    with pytest.raises(TypeError):
+        attn.ATTN_FWD_BF16(_bf16(q), _bf16(k), _bf16(v), mask, torch.ones((64, 64), device=cuda))
+    x = _bf16(torch.zeros((2, 10, 8))).to(cuda)
+    with pytest.raises(TypeError):
+        dwc.depthwise_conv1d(x, torch.zeros((5, 8), device=cuda), torch.zeros((8,), device=cuda))
+    with pytest.raises(TypeError):
+        dwc.depthwise_conv1d(x.half(), x[0, :5].half(), x[0, 0].half())
+
+
 # ------------------------------------------------ LM-fused beam search
 
 

@@ -2,7 +2,8 @@
 ``::attention_fwd``, ``::depthwise_fwd``): ``torch.library.opcheck`` on the
 CPU (schema, fake implementation against the real one, autograd
 registration, AOT dispatch), and the op on a CPU tensor equal, bit for bit,
-to the plain version it stands for."""
+to the plain version it stands for — for the attention and depthwise ops in
+fp32 and in bf16 (``compute_dtype: bfloat16``)."""
 
 import numpy as np
 import pytest
@@ -80,5 +81,34 @@ def test_depthwise_fwd_op():
                for s in ((2, 11, 6), (5, 6), (6,)))
     torch.library.opcheck(torch.ops.ssd_tpu_torch.depthwise_fwd.default, (x, w, b))
     y = torch.ops.ssd_tpu_torch.depthwise_fwd(x, w, b)
+    assert torch.equal(y, dwc.depthwise_conv1d_plain(x, w, b))
+    assert torch.equal(dwc.depthwise_conv1d(x, w, b), y)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_attention_fwd_op_bf16(drop):
+    """bf16 q, k, v (and multiplier): a bf16 output in the same (B, T, H, hd)
+    storage, fp32 row statistics."""
+    rng = np.random.default_rng(10 + drop)
+    B, T, H, hd = 2, 9, 3, 8
+    q, k, v = (t.to(torch.bfloat16) for t in _heads(rng, B, T, H, hd))
+    key_mask = torch.from_numpy((np.arange(T)[None, :] < np.array([[T], [4]])).astype(np.int32))
+    mult = (torch.from_numpy((rng.uniform(size=(T, T)) > 0.1).astype(np.float32))
+            .to(torch.bfloat16) / 0.9) if drop else None
+    torch.library.opcheck(torch.ops.ssd_tpu_torch.attention_fwd.default, (q, k, v, key_mask, mult))
+    out, row_max, row_sum = torch.ops.ssd_tpu_torch.attention_fwd(q, k, v, key_mask, mult)
+    assert out.dtype == torch.bfloat16 and row_max.dtype == row_sum.dtype == torch.float32
+    assert out.shape == (B, H, T, hd) and out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, attn.fused_attention_plain(q, k, v, key_mask, mult))
+    assert torch.equal(attn.fused_attention(q, k, v, key_mask, mult), out)
+
+
+def test_depthwise_fwd_op_bf16():
+    rng = np.random.default_rng(4)
+    x, w, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+               for s in ((2, 11, 6), (5, 6), (6,)))
+    torch.library.opcheck(torch.ops.ssd_tpu_torch.depthwise_fwd.default, (x, w, b))
+    y = torch.ops.ssd_tpu_torch.depthwise_fwd(x, w, b)
+    assert y.dtype == torch.bfloat16
     assert torch.equal(y, dwc.depthwise_conv1d_plain(x, w, b))
     assert torch.equal(dwc.depthwise_conv1d(x, w, b), y)

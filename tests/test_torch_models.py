@@ -144,7 +144,6 @@ def test_fused_attention_and_pallas_depthwise_match_jax(override):
     "override",
     [
         {"quantize": "int8"},
-        {"compute_dtype": "bfloat16"},
         {"pipeline_microbatches": 2, "conv_norm": "layer"},
     ],
     ids=lambda o: next(iter(o)),
@@ -159,7 +158,7 @@ def test_invalid_config_values_raise_like_jax():
         build_model(_cfg(remat_policy="bogus"), input_dim=IN_DIM, vocab_size=VOCAB)
     with pytest.raises(ValueError, match="quantize"):
         build_model(_cfg(quantize="int4"), input_dim=IN_DIM, vocab_size=VOCAB)
-    # memory / parallelism knobs leave single-device inference math alone
+    # remat and sequence parallelism leave the forward's math alone
     build_model(
         _cfg(remat=True, attn_remat=True, sequence_parallel=True),
         input_dim=IN_DIM, vocab_size=VOCAB,

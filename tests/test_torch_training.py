@@ -373,8 +373,6 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu(tmp_path):
         ("parallel", {"fsdp": True}),
         ("parallel", {"sequence": True}),
         ("parallel", {"pipeline_microbatches": 2}),
-        ("data", {"emg_dtype": "bfloat16"}),
-        ("data", {"teacher_dtype": "bfloat16"}),
         ("encoder", {"quantize": "int8"}),
         ("env", {"WORLD_SIZE": "2"}),
     ],
