@@ -100,7 +100,14 @@ failing loudly:
              trained for one epoch of 2 overfit batches (6 launches of each
              kernel per step, backward kernels per train step only), then
              served; (c) phase 8's card-vs-CPU step and overfit; (d) phase
-             9's rate with the four kernels' share of the step.
+             9's rate with the four kernels' share of the step. Between (b)
+             and (c), reproducible training: ``train_from_config`` twice from
+             one seed in each configuration (2 overfit batches, dropout and
+             SpecAugment on), every logged loss and trained weight equal bit
+             for bit and the cuDNN flags restored after. Phase 9 also prints
+             what the trainer's cuDNN settings (deterministic, no autotune)
+             cost the default flagship step (host p50 and device busy, off,
+             on, on, off).
 12. evaluate — ``ssd_tpu_torch.evaluation.evaluate.main`` in-process with
              ``--device cuda`` on phase 7's cached and raw checkpoints and
              phase 11b's fused/pallas one, greedy and beam-50, over the
@@ -111,10 +118,11 @@ failing loudly:
              fused/pallas configuration, nothing else), the card's log-probs
              against a CPU forward of the same checkpoint and batches within
              phase 4's tolerance, the texts the decoder returned written to
-             ``predictions.jsonl``, and greedy text equal to the port's CPU
-             decoder on the card's log-probs (beam-50's agreement counted:
-             on these flat log-probs the two devices' beams may part;
-             phase 4 holds beam text on decisive ones); WER / CER,
+             ``predictions.jsonl``, and greedy and beam-50 text equal to
+             the port's CPU decoder on the card's log-probs (beam-50 gated
+             since the beam breaks score ties as the JAX search does and
+             adds no atomics: on these flat log-probs scores tie at the
+             cut); WER / CER,
              utterances/s and decode p50 printed with the card's name and
              power limit.
 13. LM fusion — a 5-gram built by
@@ -171,9 +179,12 @@ failing loudly:
              versions at B = 32, T′ 384 (dropout multiplier) and B = 8, T′
              625 (H 12, hd 64, C 768, K 15): the depthwise forward and dx
              bit-equal, dw / db within 1e-4 and attention out / dq / dk /
-             dv within 2⁻⁶ of each output's largest; times beside SDPA's
-             bf16 efficient backend and a bf16 ``F.conv1d``; bounds at the
-             dense bf16 tensor-core peak; (b) served in both configurations
+             dv within 2⁻⁶ of each output's largest, the training forward's
+             out its fp32 output (õ, the backward's D) rounded and equal to
+             the serving forward's; times (the forward's training call at
+             the train shape, with the serving call beside) next to the
+             PR 10's recorded times and SDPA's bf16 efficient backend and a bf16 ``F.conv1d``;
+             bounds at the dense bf16 tensor-core peak; (b) served in both configurations
              (as shipped, and ``attention_impl: fused`` + ``depthwise_impl:
              pallas``) through phase 3/4's counted run at B = 1 and 8
              (greedy, beam-50, three ``/transcribe``; 1 log-mel and, fused,
@@ -186,9 +197,10 @@ failing loudly:
              B = 32 on 768-frame buckets, 1 eval step; with remat the
              forward kernels launch twice a train step) and the fused
              checkpoint scored by the eval CLI; (d) step p50, device busy
-             and peak memory with remat and without, and (fused) every
-             gradient and running statistic with remat ``full`` and
-             ``dots`` bit-equal to the step without, dropout 0.1; (e) a
+             and peak memory with remat and without, and (fused) the
+             trainer's loss, every gradient and running statistic with
+             remat ``full`` and ``dots`` bit-equal to the step without,
+             dropout 0.1; (e) a
              card-vs-CPU bf16 step at full width, depth cut to 2 blocks,
              B = 2. It prints its sub-steps' seconds.
 
@@ -1036,10 +1048,8 @@ def phase_train_parity(rng: np.random.Generator, **enc) -> None:
           f"{totals[-1]:.4f}")
 
 
-def profile_step(step, step_ms: float, label: str, top: int = 6, tag: str = "rate") -> None:
-    """Device time by kernel over one train step (or any ``step()``;
-    ``torch.profiler``), and the device's busy share of the unprofiled p50
-    step."""
+def device_events(step) -> list:
+    """``torch.profiler``'s device events of one ``step()``, by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):  # the first profiled run pays the tracer's start-up
@@ -1047,8 +1057,15 @@ def profile_step(step, step_ms: float, label: str, top: int = 6, tag: str = "rat
             step()
     # device events only: a user annotation such as ``Optimizer.step#…`` is
     # reported on the device too and would count its span twice
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
+    return [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
+
+
+def profile_step(step, step_ms: float, label: str, top: int = 6, tag: str = "rate") -> None:
+    """Device time by kernel over one train step (or any ``step()``;
+    ``torch.profiler``), and the device's busy share of the unprofiled p50
+    step."""
+    events = device_events(step)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"[{tag}] {label} profiler: device busy {dev_ms:.3f} ms = {100 * dev_ms / step_ms:.1f} % of "
           f"the p50 step; {sum(e.count for e in events)} device events; largest:")
@@ -1106,8 +1123,35 @@ def phase_train_rate(rng: np.random.Generator, ctc_times: dict, kernel_times=Non
                   f"blocks = {four:.3f} ms = {100 * four / step_ms:.2f} % of the step "
                   f"(phase 10's CUDA-event times at this shape, with the dropout multiplier)")
         profile_step(timed_step, step_ms, name)
+        if not enc and label == "flagship":
+            cudnn_deterministic_cost(timed_step, name)
         del model, opt, batch
         torch.cuda.empty_cache()
+
+
+def cudnn_deterministic_cost(timed_step, name: str) -> None:
+    """What the trainer's cuDNN settings (deterministic algorithms, no
+    autotuning; ``train._deterministic_cudnn``) cost the composite path's
+    step: step p50 (host clock) and device busy time (profiler) with the
+    flags off and on, in turns off, on, on, off."""
+    flags = torch.backends.cudnn
+    saved = flags.deterministic, flags.benchmark
+    runs = {False: [], True: []}
+    try:
+        for det in (False, True, True, False):
+            flags.deterministic, flags.benchmark = det, False
+            for _ in range(2):
+                timed_step()
+            host = float(np.percentile([sum(timed_step()) for _ in range(5)], 50)) * 1e3
+            dev = sum(e.self_device_time_total for e in device_events(timed_step)) / 1e3
+            runs[det].append((host, dev))
+    finally:
+        flags.deterministic, flags.benchmark = saved
+    fmt = lambda rs: ", ".join(f"{h:.3f} / {d:.3f}" for h, d in rs)  # noqa: E731
+    extra = np.mean([d for _, d in runs[True]]) - np.mean([d for _, d in runs[False]])
+    print(f"[rate] {name}: cuDNN deterministic (the trainer's setting) vs off, step p50 host ms / "
+          f"device busy ms: on {fmt(runs[True])}; off {fmt(runs[False])}; device time "
+          f"{extra:+.3f} ms a step with it on")
 
 
 # ------------------------------------- attention / depthwise (phases 10, 11)
@@ -1398,6 +1442,40 @@ def phase_fused_serving(run_dir: Path, default_ckpt: Path, rng: np.random.Genera
     return launches
 
 
+def phase_reproducible(root: Path) -> None:
+    """``train_from_config`` twice from one seed on the card, tpu_fast_plus as
+    shipped and fused/pallas, 2 overfit batches (dropout and SpecAugment
+    drawn from the seeded generator): every logged loss and every trained
+    weight equal bit for bit (the JAX package's contract,
+    ``tests/test_determinism.py``). The trainer holds cuDNN to its
+    deterministic algorithms while it trains and restores the flags."""
+    base = load_config(root / "config.json")
+    base["optim"]["max_epochs"] = 1
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    for label, enc in (("default", {}), ("fused/pallas", FUSED)):
+        t0 = time.perf_counter()
+        runs = []
+        for i in range(2):
+            cfg = copy.deepcopy(base)
+            cfg["model"]["encoder"].update(enc)
+            run = root / f"repro_{'fused' if enc else 'default'}_{i}"
+            h = trainer.train_from_config(cfg, run, overfit_batches=2, device="cuda")["history"][0]
+            check_epoch(h, f"reproducible {label}")
+            runs.append(({f"{part} {k}": h[part][k] for part in ("train", "val")
+                          for k in ("total", "ctc", "distill")},
+                         load_checkpoint(run / "last")["state_dict"]))
+        check(runs[0][0] == runs[1][0], f"reproducible {label}: losses differ run to run: "
+              f"{runs[0][0]} vs {runs[1][0]}")
+        bad = [n for n, w in runs[0][1].items() if not torch.equal(w, runs[1][1][n])]
+        check(not bad, f"reproducible {label}: {len(bad)} trained weights differ (first {bad[:3]})")
+        check((torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) == flags,
+              f"reproducible {label}: the trainer left the cuDNN flags changed")
+        print(f"[reproducible] {label}: two train_from_config runs from seed "
+              f"{base['logging'].get('seed', 42)} (2 overfit batches + val) gave equal losses "
+              f"{runs[0][0]} and {len(runs[0][1])} bit-equal trained tensors (torch.equal), in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+
 def phase_fused_train(root: Path, rng: np.random.Generator) -> dict:
     """Phase 11b: one epoch of 2 overfit batches with the two keys set,
     launch counts per step, then the trained checkpoint served."""
@@ -1529,15 +1607,13 @@ def phase_evaluate(root: Path, card: str) -> dict:
                 texts += decoded
                 cpu_texts = decoding.build_decoder(**kwargs)(lp_host, ol.cpu())
                 agree += sum(a == b for a, b in zip(decoded, cpu_texts))
-                # greedy is an argmax: the CPU's text on the same log-probs is
-                # the card's. A beam over the flat log-probs of these barely
-                # trained checkpoints is not: the card's and the CPU's exp / log
-                # differ by an ulp and send the search down other prefixes, so
-                # beam text is held to the CPU decoder on decisive log-probs in
-                # phase 4 and only counted here
-                if decoder == "greedy":
-                    check(decoded == cpu_texts, f"{what}: the card's texts {decoded} differ from "
-                          f"the CPU decoder's {cpu_texts} on the same log-probs")
+                # greedy is an argmax; the beam breaks ties as the JAX search
+                # does (lower index first, the unsigned hash order) and adds
+                # no atomics, so on these flat log-probs of barely trained
+                # checkpoints, where scores tie at the beam cut, the card's
+                # beam text is the CPU's too (scripts/beam_card_vs_cpu.py)
+                check(decoded == cpu_texts, f"{what}: the card's texts {decoded} differ from "
+                      f"the CPU decoder's {cpu_texts} on the same log-probs")
             check(texts == [p["hyp"] for p in preds],
                   f"{what}: predictions.jsonl is not what the decoder returned")
             lat = metrics["decode_latency_sec"]
@@ -1547,7 +1623,7 @@ def phase_evaluate(root: Path, card: str) -> dict:
                   f"load, data, forward, decode, files), decode p50 {lat['p50'] * 1e3:.3f} ms an "
                   f"utterance; log-probs vs the CPU forward max abs err {max(errs):.3e} (tol "
                   f"{LOGPROB_TOL}); {agree} of {n} texts equal to the CPU decoder's on the card's "
-                  f"log-probs{' (gated)' if decoder == 'greedy' else ''}; "
+                  f"log-probs (gated); "
                   f"launches {({k: v for k, v in c.items() if v})}; {card}")
     return totals
 
@@ -2145,6 +2221,10 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, SXM, 700 W
 # dx are bit-equal; dw and db are fp32 partials
 ATTN_BF16_REL = 2.0**-6
 DW_BF16_SUM_REL = 1e-4
+# PR 10's times of the bf16 attention kernels (PERF.md §6, H100 80GB
+# HBM3 at 700 W), printed beside this run's: (kernel, shape) → ms
+PR10_BF16_MS = {("attention_fwd_bf16", "train"): 0.1769, ("attention_bwd_bf16", "train"): 0.7202,
+                ("attention_fwd_bf16", "serve"): 0.1056, ("attention_bwd_bf16", "serve"): 0.4842}
 # card vs CPU (and a stream window vs the offline forward), both bf16: a
 # rounding flipped anywhere in 12 blocks moves the encoder's output by a
 # fraction of a percent, so the logits — and the log-probs — by that
@@ -2227,9 +2307,11 @@ def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
     for label, (B, T) in (("train", LARGE_TRAIN_SHAPE), ("serve", LARGE_SERVE_SHAPE)):
         drop = label == "train"  # the train step's dropout multiplier; serving has none
         (q, k, v, g, mask, mult), (x, gx, w, b) = bf16_cases(rng, B, T, drop)
-        out, rmax, rsum = attn.ATTN_FWD_BF16(q, k, v, mask, mult)
-        grads = attn.ATTN_BWD_BF16(q, k, v, out, g, rmax, rsum, mask, mult)
-        again = attn.ATTN_BWD_BF16(q, k, v, out, g, rmax, rsum, mask, mult)
+        # the training call writes the output in fp32 too (õ: the backward's D)
+        out, out32, rmax, rsum = attn.ATTN_FWD_BF16(q, k, v, mask, mult, fp32_out=True)
+        served = attn.ATTN_FWD_BF16(q, k, v, mask, mult)
+        grads = attn.ATTN_BWD_BF16(q, k, v, out32, g, rmax, rsum, mask, mult)
+        again = attn.ATTN_BWD_BF16(q, k, v, out32, g, rmax, rsum, mask, mult)
         want = attn.fused_attention_plain(q, k, v, mask, mult)
         want_grads = attn.fused_attention_bwd_plain(q, k, v, mask, mult, g)
         y = dwc.DW_FWD_BF16(x, w, b)
@@ -2244,6 +2326,10 @@ def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
                   f"> {ATTN_BF16_REL}")
         check(all(t.dtype == torch.bfloat16 and bool(torch.isfinite(t).all()) for t in (out, *grads)),
               f"bf16 attention at {label}: outputs not finite bf16")
+        check(torch.equal(out, out32.to(torch.bfloat16))
+              and all(torch.equal(a, bb) for a, bb in zip((out, rmax, rsum), served)),
+              f"bf16 attention at {label}: the training call's out is not its fp32 output rounded, "
+              f"or differs from the serving call's")
         pad = mask[:, None, :, None] == 0
         check(bool((grads[1].masked_select(pad) == 0).all() and (grads[2].masked_select(pad) == 0).all()),
               f"bf16 attention at {label}: padded keys got a nonzero dk / dv")
@@ -2279,9 +2365,11 @@ def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
 
         with sdpa_kernel(SDPA_BACKEND):
             t = {
-                "attention_fwd_bf16": cuda_ms(lambda: attn.ATTN_FWD_BF16(q, k, v, mask, mult)),
+                "attention_fwd_bf16": cuda_ms(
+                    lambda: attn.ATTN_FWD_BF16(q, k, v, mask, mult, fp32_out=drop)),
+                "attention_fwd_bf16_serving": cuda_ms(lambda: attn.ATTN_FWD_BF16(q, k, v, mask, mult)),
                 "attention_bwd_bf16": cuda_ms(
-                    lambda: attn.ATTN_BWD_BF16(q, k, v, out, g, rmax, rsum, mask, mult)),
+                    lambda: attn.ATTN_BWD_BF16(q, k, v, out32, g, rmax, rsum, mask, mult)),
                 "attention_fwd_bf16_plain": cuda_ms(
                     lambda: attn.fused_attention_plain(q, k, v, mask, mult), iters=10),
                 "attention_bwd_bf16_plain": cuda_ms(
@@ -2303,15 +2391,16 @@ def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
                     lambda: F.conv1d(xc, wc, b, padding=pad_t, groups=D)),
                 "depthwise_bwd_bf16_library": cuda_ms(conv_fwd_bwd),
             }
-        n, stats = B * H * T * hd, B * H * T
+        n = B * H * T * hd
         extra = 4 * B * T + (2 * T * T if drop else 0)  # the int32 mask and the bf16 multiplier
         nx = B * T * D
         bounds = {
-            # bf16 q, k, v (+ out, g, dq, dk, dv), fp32 row statistics
-            "attention_fwd_bf16": bound(4 * B * H * T * T * hd, 2 * 4 * n + 4 * 2 * stats + extra,
-                                        H100_BF16_FLOPS),
-            "attention_bwd_bf16": bound(10 * B * H * T * T * hd, 2 * 8 * n + 4 * 2 * stats + extra,
-                                        H100_BF16_FLOPS),
+            # the function's own bytes, as the Pallas kernels move them: the
+            # forward reads bf16 q, k, v and writes out; the backward reads
+            # q, k, v, g and writes dq, dk, dv. The fp32 õ and the row
+            # statistics this design keeps between the calls are left out.
+            "attention_fwd_bf16": bound(4 * B * H * T * T * hd, 2 * 4 * n + extra, H100_BF16_FLOPS),
+            "attention_bwd_bf16": bound(10 * B * H * T * T * hd, 2 * 7 * n + extra, H100_BF16_FLOPS),
             # fp32 arithmetic on upcast values, off the tensor cores
             "depthwise_fwd_bf16": bound(2 * nx * K, 2 * (2 * nx + K * D + D)),
             "depthwise_bwd_bf16": bound(4 * nx * K + nx, 2 * (3 * nx + K * D) + 4 * B * (K + 1) * D),
@@ -2326,10 +2415,16 @@ def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
                                  "ssd_tpu/ops/depthwise_conv.py:84",
                                  "ssd_tpu/ops/depthwise_conv.py:107")}
         for name, (bnd, by) in bounds.items():
-            print(f"[large-kernels] {label} B={B} T'={T} {name}: kernel {t[name]:.4f} ms, plain "
+            before = PR10_BF16_MS.get((name, label))
+            print(f"[large-kernels] {label} B={B} T'={T} {name}: kernel {t[name]:.4f} ms"
+                  f"{f' (PR 10: {before} ms)' if before else ''}, plain "
                   f"{t[name + '_plain']:.4f} ms, library {t[name + '_library']:.4f} ms, bound "
                   f"{bnd:.5f} ms ({by}); {bnd / t[name] * 100:.1f} % of the bound; max abs err "
                   f"{errs[name]:.3e}; {card}")
+            if name == "attention_fwd_bf16":
+                print(f"[large-kernels] {label} B={B} T'={T} attention_fwd_bf16 "
+                      f"{'training call (writes õ in fp32)' if drop else 'serving call'} above; "
+                      f"the serving call alone {t['attention_fwd_bf16_serving']:.4f} ms")
             if label == "train":
                 src, fwd, bwd = sources[name.split("_")[0]]
                 entries[name] = {
@@ -2339,7 +2434,8 @@ def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
                     "plain_ms": t[name + "_plain"], "bound_ms": bnd, "bound_by": by,
                     "library_ms": t[name + "_library"],
                 }
-    print(f"[large-kernels] bounds: bf16 bytes (fp32 statistics, mask, partials) at 3.35 TB/s; "
+    print(f"[large-kernels] bounds: bytes at 3.35 TB/s (attention: the function's bf16 q, k, v, out / "
+          f"g, dq, dk, dv, the mask and multiplier; depthwise: bf16 tensors, fp32 partials); "
           f"attention operations (4 / 10 · B·H·T'²·hd) at the H100's dense bf16 tensor-core peak "
           f"{H100_BF16_FLOPS / 1e12:.0f} TFLOP/s, the depthwise stencil's at the fp32 SIMT "
           f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s (it computes in fp32); library = SDPA ({SDPA_BACKEND.name}, bf16, "
@@ -2629,22 +2725,16 @@ def large_rate(rng: np.random.Generator, card: str, steps: dict, fused: bool) ->
 
 
 def large_remat_equal(model, rng: np.random.Generator) -> None:
-    """Gradients of a dropout-0.1 step with remat ``full`` and ``dots`` equal,
-    bit for bit, to the step without remat on the card (the same generator
-    seed; the running statistics equal too). A fixed-weight sum of the
-    log-probs and the student representation stands in for the loss: the
-    CTC backward's scatter-add and cuDNN's convolution backward are not
-    run-to-run deterministic on their own."""
+    """Gradients of a dropout-0.1 train step (the trainer's loss: CTC +
+    distillation, from raw EMG) with remat ``full`` and ``dots`` equal, bit
+    for bit, to the step without remat on the card (the same generator seed;
+    the running statistics equal too), under the trainer's cuDNN settings.
+    The CTC gradient adds without atomics, so the real loss repeats itself."""
     batch = trainer.to_device(large_batch(rng, 4), torch.device("cuda"))
     featurize = feat.FeaturizerConfig.from_config(large_config())
-    feats, lengths, _, _ = feat.logmel_batch(batch["emg"], batch["emg_lengths"], featurize)
-    B, T, C, M = feats.shape
-    feats = feats.reshape(B, T, C * M)
     stats = {k: v.clone() for k, v in model.named_buffers()}
-    gen_lp = gen_st = None
     runs = {}
-    torch.backends.cudnn.deterministic = True
-    try:
+    with trainer._deterministic_cudnn(torch.device("cuda")):
         for label, remat, policy in (("none", False, "full"), ("full", True, "full"),
                                      ("dots", True, "dots")):
             model.encoder.cfg = dataclasses.replace(model.encoder.cfg, remat=remat,
@@ -2652,25 +2742,22 @@ def large_remat_equal(model, rng: np.random.Generator) -> None:
             model.load_state_dict(stats, strict=False)
             model.zero_grad(set_to_none=True)
             gen = torch.Generator("cuda").manual_seed(SEED + 7)
-            lp, _, student = model(feats, lengths, train=True, generator=gen)
-            if gen_lp is None:
-                g = torch.Generator("cuda").manual_seed(SEED + 8)
-                gen_lp = torch.randn(lp.shape, generator=g, device="cuda")
-                gen_st = torch.randn(student.shape, generator=g, device="cuda")
-            ((lp * gen_lp).sum() + (student * gen_st).sum()).backward()
+            total, _ = trainer._losses(model, batch, LAMBDAS, BLANK, False, True, gen, None,
+                                       featurize)
+            total.backward()
             runs[label] = ({n: p.grad.clone() for n, p in model.named_parameters()},
-                           {n: b.clone() for n, b in model.named_buffers()})
-    finally:
-        torch.backends.cudnn.deterministic = False
-        model.encoder.cfg = dataclasses.replace(model.encoder.cfg, remat=True, remat_policy="full")
+                           {n: b.clone() for n, b in model.named_buffers()}, float(total.detach()))
+    model.encoder.cfg = dataclasses.replace(model.encoder.cfg, remat=True, remat_policy="full")
     for label in ("full", "dots"):
+        check(runs[label][2] == runs["none"][2],
+              f"remat {label}: loss {runs[label][2]} vs {runs['none'][2]} without remat")
         for i, what in enumerate(("gradient", "running statistic")):
             bad = [n for n, t in runs["none"][i].items() if not torch.equal(runs[label][i][n], t)]
             check(not bad, f"remat {label}: {len(bad)} {what}s differ from the step without remat "
                   f"(first: {bad[:3]})")
-    print(f"[large-remat] fused/pallas, dropout {large_key('dropout')}, B=4: every gradient and "
-          f"running statistic with remat full and dots bit-equal (torch.equal) to the step without "
-          f"remat on the card")
+    print(f"[large-remat] fused/pallas, dropout {large_key('dropout')}, B=4, the trainer's loss "
+          f"({runs['none'][2]:.6f}): the loss, every gradient and running statistic with remat full "
+          f"and dots bit-equal (torch.equal) to the step without remat on the card")
 
 
 def large_train_parity(rng: np.random.Generator) -> None:
@@ -2805,6 +2892,7 @@ def main() -> int:
         new_out = timed("attention+depthwise kernels", phase_attention_depthwise, rng)
         served = timed("fused serving", phase_fused_serving, run_dir / "fused", ckpt, rng)
         trained = timed("fused train", phase_fused_train, train_dir, rng)
+        timed("reproducible training", phase_reproducible, train_dir)
         timed("fused train parity", phase_train_parity, rng, **FUSED)
         timed("fused train rate", phase_train_rate, rng, ctc_out["times"], new_out["times"], **FUSED)
         evaluated = timed("evaluate", phase_evaluate, train_dir, card)

@@ -49,7 +49,8 @@ import torch
 
 from ssd_tpu_torch.data.vocab import Vocab
 from ssd_tpu_torch.decoding.lm import UNK, NGramLM
-from ssd_tpu_torch.ops.ctc_decode import NEG_INF, _run_logsumexp, frame_candidates, traceback
+from ssd_tpu_torch.ops.ctc_decode import (NEG_INF, _run_logsumexp, frame_candidates, merge_key,
+                                          top_k, traceback)
 
 logger = logging.getLogger(__name__)
 
@@ -507,17 +508,16 @@ def beam_search_lm_device(
 
         # ---- merge duplicates: a stable sort by the unsigned (h1, h2) pair
         # (order-preserving in int64), then a log-sum-exp over each run
-        key = (cand_h1 - (1 << 31)) * (1 << 32) + cand_h2
-        s_key, order = torch.sort(key, dim=1, stable=True)
+        s_key, order = torch.sort(merge_key(cand_h1, cand_h2), dim=1, stable=True)
         new_seg = torch.cat([first, s_key[:, 1:] != s_key[:, :-1]], dim=1)
         run_id = torch.cumsum(new_seg.to(torch.int64), dim=1) - 1
-        m_pb = _run_logsumexp(cand_pb.gather(1, order), run_id, N)
-        m_pnb = _run_logsumexp(cand_pnb.gather(1, order), run_id, N)
+        cand = torch.stack([cand_pb, cand_pnb]).gather(2, order.expand(2, B, N))
+        m_pb, m_pnb = _run_logsumexp(cand, run_id, K)
         s_lm = cand_lm.gather(1, order)
         run_last = torch.cat([new_seg[:, 1:], first], dim=1)
         score = torch.where(run_last, torch.logaddexp(m_pb, m_pnb) + s_lm, NEG_INF)
 
-        top_score, top_idx = torch.topk(score, K, dim=1)
+        top_score, top_idx = top_k(score, K)
         src = order.gather(1, top_idx)  # candidate index of each survivor
         n_pb = m_pb.gather(1, top_idx)
         n_pnb = m_pnb.gather(1, top_idx)

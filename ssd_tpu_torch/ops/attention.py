@@ -35,6 +35,11 @@ and row sum stay fp32; the (multiplied) weights are rounded to bf16 before
 products; out, dq, dk and dv are bf16. Each dtype has its own kernel
 instance and launch count (:data:`ATTN_FWD` / :data:`ATTN_FWD_BF16`,
 :data:`ATTN_BWD` / :data:`ATTN_BWD_BF16`); another dtype on the card raises.
+A bf16 call that needs a gradient goes through a second custom op,
+``ssd_tpu_torch::attention_fwd_train``, which also returns the output in
+fp32 before its rounding: the bf16 backward takes D = rowsum(g ∘ out) from
+it (bf16 ``out`` would carry a 2⁻⁸ rounding into ds) and saves it in place of
+``out``; serving and export keep ``attention_fwd``.
 """
 
 from __future__ import annotations
@@ -143,7 +148,7 @@ _ATTN_LIBRARY = CudaLibrary(
     {
         "ssd_attn_fwd_launch": ([_P] * 8 + [_S, _I, _I, _I, _I, _F, _P], _I),
         "ssd_attn_bwd_launch": ([_P] * 13 + [_S, _I, _I, _I, _I, _F, _P], _I),
-        "ssd_attn_fwd_bf16_launch": ([_P] * 8 + [_S, _I, _I, _I, _I, _F, _P], _I),
+        "ssd_attn_fwd_bf16_launch": ([_P] * 9 + [_S, _S, _I, _I, _I, _I, _F, _P], _I),
         "ssd_attn_bwd_bf16_launch": ([_P] * 13 + [_S, _I, _I, _I, _I, _F, _P], _I),
     },
     error_string="ssd_attn_error_string",
@@ -202,44 +207,60 @@ class AttentionFwdKernel(_AttentionKernel):
     q, k, v (B, H, T, hd) views, key_mask (B, T) int32, mult (T, T) or
     None → out (B, H, T, hd) (a view of (B, T, H, hd) storage) and the fp32
     row max and row sum (B, H, T) that the backward recomputes the softmax
-    from."""
+    from. With ``fp32_out`` (the bf16 instance, for training) it returns
+    (out, out32, row max, row sum): out32 is the output in fp32 before its
+    bf16 rounding, contiguous (B, H, T, hd), which the bf16 backward takes in
+    out's place."""
 
-    def __call__(self, q, k, v, key_mask, mult=None):
+    def __call__(self, q, k, v, key_mask, mult=None, fp32_out=False):
         (B, H, T, hd), strides = self._inputs(q, k, v, key_mask, mult)
+        if fp32_out and self.dtype != torch.bfloat16:
+            raise ValueError("fp32_out is for the bf16 instance: the fp32 output is fp32 already")
         out = _empty_like_heads(q)
         row_max = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
         row_sum = torch.empty_like(row_max)
         strides += list(out.stride()[:3])
-        self.launch(
-            self.entry("ssd_attn_fwd"), q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), _ptr(mult),
-            out.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
-            (ctypes.c_longlong * 12)(*strides), B, H, T, hd, 1.0 / math.sqrt(hd),
-        )
-        return out, row_max, row_sum
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), _ptr(mult),
+                out.data_ptr()]
+        out32 = None
+        if self.dtype == torch.bfloat16:
+            if fp32_out:
+                out32 = torch.empty((B, H, T, hd), dtype=torch.float32, device=q.device)
+            args += [_ptr(out32), row_max.data_ptr(), row_sum.data_ptr(),
+                     (ctypes.c_longlong * 12)(*strides),
+                     (ctypes.c_longlong * 3)(*(out32.stride()[:3] if fp32_out else (0, 0, 0)))]
+        else:
+            args += [row_max.data_ptr(), row_sum.data_ptr(), (ctypes.c_longlong * 12)(*strides)]
+        self.launch(self.entry("ssd_attn_fwd"), q.device, *args, B, H, T, hd, 1.0 / math.sqrt(hd))
+        return (out, out32, row_max, row_sum) if fp32_out else (out, row_max, row_sum)
 
 
 class AttentionBwdKernel(_AttentionKernel):
     """Backward of ``csrc/attention.cu`` (replaces ``_attn_bwd_kernel``): two
-    launches — dq (which also stores D = rowsum(g∘out)), then dk and dv —
-    counted as one backward. → dq, dk, dv (B, H, T, hd)."""
+    launches — dq (which also stores D for the second), then dk and dv —
+    counted as one backward. ``out``: the forward's output — for the bf16
+    instance the fp32 one its forward returns with ``fp32_out``, from which
+    the dq kernel takes D = rowsum(g ∘ out) (the fp32 instance sums D from
+    w and dP and reads no out). → dq, dk, dv (B, H, T, hd)."""
 
     def __call__(self, q, k, v, out, g, row_max, row_sum, key_mask, mult=None):
         (B, H, T, hd), strides = self._inputs(q, k, v, key_mask, mult)
-        for name, t in (("out", out), ("g", g)):
-            strides += _check_view(name, t, (B, H, T, hd), self.dtype, q.device)
+        strides += _check_view("out", out, (B, H, T, hd), torch.float32, q.device)
+        strides += _check_view("g", g, (B, H, T, hd), self.dtype, q.device)
         for name, t in (("row_max", row_max), ("row_sum", row_sum)):
             check_cuda_tensor(name, t, (B, H, T), device=q.device)
         grads = [_empty_like_heads(q) for _ in range(3)]
         for t in grads:
             strides += list(t.stride()[:3])
-        delta = torch.empty_like(row_max)
+        # fp32: D; bf16: D and 1 / the row sum
+        scratch = torch.empty((1 if self.dtype == torch.float32 else 2, B, H, T),
+                              dtype=torch.float32, device=q.device)
         dq, dk, dv = grads
         self.launch(
             self.entry("ssd_attn_bwd"), q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
             key_mask.data_ptr(), _ptr(mult), row_max.data_ptr(), row_sum.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             (ctypes.c_longlong * 24)(*strides), B, H, T, hd, 1.0 / math.sqrt(hd),
         )
         return dq, dk, dv
@@ -282,14 +303,50 @@ def _attention_fwd_fake(q, k, v, key_mask, mult):
     return _empty_like_heads(q), row_max, torch.empty_like(row_max)
 
 
+@torch.library.custom_op(
+    "ssd_tpu_torch::attention_fwd_train", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor key_mask, Tensor? mult) "
+           "-> (Tensor, Tensor, Tensor, Tensor)",
+)
+def _attention_fwd_train_op(q, k, v, key_mask, mult):
+    """The forward of a call that needs a gradient: ``attention_fwd``'s out,
+    row max and row sum, and beside out its fp32 value before the rounding
+    to q's dtype (contiguous (B, H, T, hd)), which the bf16 backward takes D
+    from. On the card it is the bf16 instance's (the fp32 one needs none)."""
+    e, m, l = _softmax_parts(q, k, key_mask)
+    out32 = _weighted_values(e / l, mult, v)
+    out = _empty_like_heads(q)
+    out.copy_(out32)
+    return out, out32, m[..., 0], l[..., 0]
+
+
+@_attention_fwd_train_op.register_kernel("cuda")
+def _attention_fwd_train_cuda(q, k, v, key_mask, mult):
+    return ATTN_FWD_BF16(q, k, v, key_mask, mult, fp32_out=True)
+
+
+@_attention_fwd_train_op.register_fake
+def _attention_fwd_train_fake(q, k, v, key_mask, mult):
+    B, H, T, hd = q.shape
+    row_max = q.new_empty((B, H, T), dtype=torch.float32)
+    return (_empty_like_heads(q), q.new_empty((B, H, T, hd), dtype=torch.float32), row_max,
+            torch.empty_like(row_max))
+
+
 class _FusedAttention(torch.autograd.Function):
-    """``_fused_attn``'s custom VJP. On the card it saves q, k, v, out and the
-    row statistics — no (T, T) tensor."""
+    """``_fused_attn``'s custom VJP. On the card it saves q, k, v, the output
+    (in bf16, its fp32 value before the rounding) and the row statistics — no
+    (T, T) tensor."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, mult):
-        out, row_max, row_sum = torch.ops.ssd_tpu_torch.attention_fwd(q, k, v, key_mask, mult)
-        ctx.save_for_backward(q, k, v, out, row_max, row_sum, key_mask, mult)
+    def forward(ctx, q, k, v, key_mask, mult, train):
+        if train and q.dtype == torch.bfloat16:  # the bf16 backward takes D from out in fp32
+            out, saved, row_max, row_sum = torch.ops.ssd_tpu_torch.attention_fwd_train(
+                q, k, v, key_mask, mult)
+        else:
+            out, row_max, row_sum = torch.ops.ssd_tpu_torch.attention_fwd(q, k, v, key_mask, mult)
+            saved = out
+        ctx.save_for_backward(q, k, v, saved, row_max, row_sum, key_mask, mult)
         return out
 
     @staticmethod
@@ -302,7 +359,7 @@ class _FusedAttention(torch.autograd.Function):
                 g = g.contiguous()
             dq, dk, dv = instance_for(_BWD, "q", q)(q, k, v, out, g, row_max, row_sum, key_mask,
                                                     mult)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def fused_attention(
@@ -319,4 +376,5 @@ def fused_attention(
     (T, T) dropout multiplier in q's dtype, shared by every batch row and
     head, or None. The output is in q's dtype.
     """
-    return _FusedAttention.apply(q, k, v, key_mask.to(torch.int32).contiguous(), mult)
+    train = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _FusedAttention.apply(q, k, v, key_mask.to(torch.int32).contiguous(), mult, train)

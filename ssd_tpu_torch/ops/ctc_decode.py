@@ -11,9 +11,16 @@
 * frames past a sample's length leave its beams untouched;
 * duplicate prefixes merge by log-sum-exp of their (blank, non-blank) path
   probabilities. Prefix identity is two 32-bit rolling hashes, computed in
-  int64 and masked to 32 bits; candidates are sorted by the packed hash
-  pair, so equal prefixes sit together, and each run is reduced with a
-  scatter log-sum-exp in place of the JAX associative scan.
+  int64 and masked to 32 bits; candidates are sorted (stably) by the packed
+  hash pair in the order ``jax.lax.sort`` gives the unsigned pair
+  (:func:`merge_key`), so equal prefixes sit together, and each run is
+  reduced by :func:`_run_logsumexp` (a masked window sum) in place of the
+  JAX associative scan.
+
+Ties break as in the JAX package on every device: the beam cut and the
+token top-k keep the lower index first among equal scores (``jax.lax.top_k``'s
+order; :func:`top_k`), and no step adds atomically, so the card repeats
+itself and gives the CPU's sums.
 
 The search emits per-step backpointers ``(parent_beam, emitted_char)``;
 :func:`traceback` rebuilds the prefixes on the host.
@@ -25,6 +32,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1.0e30
 
@@ -73,15 +81,48 @@ def greedy_decode(
 # --------------------------------------------------------------------------
 
 
-def _run_logsumexp(values: torch.Tensor, run_id: torch.Tensor, n_runs: int) -> torch.Tensor:
-    """Log-sum-exp of ``values`` over each run (``run_id`` per position),
-    broadcast back to every position of the run. Rows are independent."""
-    B = values.shape[0]
-    vmax = torch.full((B, n_runs), NEG_INF, dtype=values.dtype, device=values.device)
-    vmax = vmax.scatter_reduce(1, run_id, values, reduce="amax", include_self=True)
-    m = vmax.gather(1, run_id)
-    sums = torch.zeros_like(vmax).scatter_add_(1, run_id, torch.exp(values - m))
-    return m + torch.log(sums.gather(1, run_id))
+def merge_key(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """The 32-bit hash pair ``(h1, h2)`` (int64 tensors in [0, 2³²)) packed
+    into one int64 that sorts as the unsigned pair does under
+    ``jax.lax.sort``: ``h1`` shifted down by 2³¹ into the signed range, so a
+    prefix with ``h1 ≥ 2³¹`` sorts after those below it."""
+    return (h1 - (1 << 31)) * (1 << 32) + h2
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values of ``x`` along its last axis and their
+    indices, in descending order, equal values lower index first — the order
+    of ``jax.lax.top_k``. ``torch.topk`` leaves the order of ties open, and
+    at the beam cut a tie decides which prefix survives."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _run_logsumexp(values: torch.Tensor, run_id: torch.Tensor, max_run: int) -> torch.Tensor:
+    """Log-sum-exp of ``values`` (..., B, N) over each run of equal
+    ``run_id`` (B, N; every run contiguous, at most ``max_run`` long), held
+    at the run's last position; an earlier position holds the run's sum up
+    to it, as the JAX package's segmented scan leaves it. Leading axes share
+    the runs.
+
+    The run's max (an exact reduction) is subtracted; then each position
+    sums the exponentials of the ``max_run`` positions ending at it that
+    share its run — a window view, a mask and one reduction, no atomics, so
+    every device makes the same additions. In a prefix search each beam puts
+    at most one candidate into a run (its stay, or its extension by the run's
+    last char), so the beam width bounds a run. A run holds at most two
+    finite terms (the stay of the one live beam with the prefix, the
+    extension of the one live beam one char shorter), and fp32 addition of
+    two terms and zeros gives the same bits in any order: the sums equal the
+    CPU's left-to-right ones."""
+    idx = run_id.expand(values.shape)
+    vmax = torch.full(values.shape, NEG_INF, dtype=values.dtype, device=values.device)
+    vmax = vmax.scatter_reduce(-1, idx, values, reduce="amax", include_self=True)
+    m = vmax.gather(-1, idx)
+    pad = (max_run - 1, 0)
+    window = F.pad(torch.exp(values - m), pad).unfold(-1, max_run, 1)  # (..., B, N, max_run)
+    same = F.pad(run_id, pad, value=-1).unfold(-1, max_run, 1) == run_id[..., None]
+    return m + torch.log(torch.where(same, window, 0.0).sum(dim=-1))
 
 
 def frame_candidates(
@@ -111,7 +152,7 @@ def frame_candidates(
     ext_invalid = (token_ids == blank_id) | (token_ids == pad_id)  # (V,)
     masked_lp = lp.masked_fill(ext_invalid[None, None, :], NEG_INF)
     if token_top_k is not None and token_top_k < V:
-        ext_vals_all, ext_ids_all = torch.topk(masked_lp, token_top_k, dim=-1)
+        ext_vals_all, ext_ids_all = top_k(masked_lp, token_top_k)
     else:
         ext_vals_all = masked_lp
         ext_ids_all = token_ids.expand(B, T, V)
@@ -200,16 +241,15 @@ def beam_search(
         cand_last = torch.cat([last, ext_char], dim=1)
 
         # ---- merge duplicates: sort by the packed hash pair, run log-sum-exp
-        key = (cand_h1 << 32) | cand_h2
-        s_key, order = torch.sort(key, dim=1, stable=True)
+        s_key, order = torch.sort(merge_key(cand_h1, cand_h2), dim=1, stable=True)
         new_seg = torch.cat([first, s_key[:, 1:] != s_key[:, :-1]], dim=1)
         run_id = torch.cumsum(new_seg.to(torch.int64), dim=1) - 1
-        m_pb = _run_logsumexp(cand_pb.gather(1, order), run_id, N)
-        m_pnb = _run_logsumexp(cand_pnb.gather(1, order), run_id, N)
+        cand = torch.stack([cand_pb, cand_pnb]).gather(2, order.expand(2, B, N))
+        m_pb, m_pnb = _run_logsumexp(cand, run_id, K)
         run_last = torch.cat([new_seg[:, 1:], first], dim=1)
         score = torch.where(run_last, torch.logaddexp(m_pb, m_pnb), NEG_INF)
 
-        top_score, top_idx = torch.topk(score, K, dim=1)
+        top_score, top_idx = top_k(score, K)
         src = order.gather(1, top_idx)  # candidate index of each survivor
         n_pb = m_pb.gather(1, top_idx)
         n_pnb = m_pnb.gather(1, top_idx)

@@ -16,8 +16,8 @@ goes to the hand-written kernels of ``csrc/ctc.cu`` (:data:`CTC_ALPHA`,
 :func:`forward_alphas_plain` / :func:`betas_plain`. There is no fall back and
 no size gate: a CUDA tensor of any T ≥ 1 and S2 ≥ 1 reaches the kernels or
 raises. The emission gather, the log-likelihood, the posterior and its
-scatter back to the vocabulary stay plain torch, as they were XLA around the
-Pallas calls.
+sum back into the vocabulary (:func:`_to_vocab`, a one-hot product with no
+atomics) stay plain torch, as they were XLA around the Pallas calls.
 
 Gradient convention: torch's CTC backward returns ``exp(log_probs) − γ`` (it
 folds the log-softmax backward in). This loss returns the true gradient with
@@ -238,6 +238,20 @@ def _final_states(target_lengths: torch.Tensor, S2: int) -> torch.Tensor:
     return torch.where(final, 0.0, NEG_INF).to(torch.float32)
 
 
+def _to_vocab(grad_ext: torch.Tensor, ext: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Each state's gradient (B, T, S2) summed into its label's column
+    (B, T, V): the product with the states' one-hot labels (B, S2, V), in
+    float64 and rounded once to fp32. A product has no atomics (a scatter-add
+    adds in atomic order on the card, so the same step would not repeat
+    itself). In float64 each term is exact (x · 1 or x · 0) and a sum of at
+    most S2 fp32 values errs far below an fp32 ulp, so the order the device
+    sums in all but never shows in the fp32 result, and no TF32 flag
+    reaches it."""
+    labels = torch.arange(vocab, device=ext.device)
+    onehot = (ext[:, :, None] == labels).to(torch.float64)
+    return torch.bmm(grad_ext.to(torch.float64), onehot).to(torch.float32)
+
+
 class _CTCLoss(torch.autograd.Function):
     """Forward ``_ctc_fwd_impl``; backward ``_ctc_bwd``'s analytic α–β posterior."""
 
@@ -270,9 +284,7 @@ class _CTCLoss(torch.autograd.Function):
         posterior = torch.exp(torch.clamp(alphas + bet - ll[None, :, None], NEG_INF, 0.0))
         posterior = torch.where(valid & ~impossible[None, :, None], posterior, 0.0)
         grad_ext = (-posterior * g.to(torch.float32)[None, :, None]).permute(1, 0, 2)
-        grad_lp = torch.zeros((B, T, ctx.vocab), dtype=torch.float32, device=lp_ext.device)
-        grad_lp.scatter_add_(2, ext[:, None, :].expand(B, T, S2), grad_ext)
-        return grad_lp, None, None, None, None
+        return _to_vocab(grad_ext, ext, ctx.vocab), None, None, None, None
 
 
 def ctc_loss(

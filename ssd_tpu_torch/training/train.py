@@ -432,6 +432,11 @@ def train_from_config(
             "(batches are bit-identical either way; the worker pool is ROADMAP.md "
             "queue 1 item 15)", num_workers,
         )
+    if bool(cfg["logging"].get("async_checkpoints", False)):
+        logger.info(
+            "logging.async_checkpoints: true is not honoured: the port saves each "
+            "checkpoint synchronously (the saved contents are the same either way)"
+        )
     common = dict(
         index_path=Path(cfg["data"]["index"]),
         features_root=Path(cfg["data"]["features_root"]),
@@ -546,7 +551,7 @@ def train_from_config(
     history = []
     epoch = start_epoch - 1
     preempted = False
-    with PreemptionGuard() as guard:
+    with _deterministic_cudnn(dev), PreemptionGuard() as guard:
         for epoch in range(start_epoch, max_epochs + 1):
             warmup_scale = 1.0
             if distill_warmup_epochs > 0:
@@ -614,6 +619,25 @@ def train_from_config(
         "preempted": preempted,
         "history": history,
     }
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn(dev: torch.device):
+    """cuDNN's deterministic algorithms (and no autotuning) while training on
+    the card, both flags restored on exit: the composite path's convolution
+    backward otherwise picks algorithms that add in atomic order, and the
+    same seed would not give the same losses run to run (the JAX package's
+    contract, ``tests/test_determinism.py``). The port's own kernels and its
+    CTC gradient add in a fixed order already."""
+    if dev.type != "cuda":
+        yield
+        return
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 def _maybe_profile(profile_dir: Optional[Path], dev: torch.device):

@@ -319,3 +319,103 @@ def test_kernel_tiling_matches_the_plain_versions(case):
     pad = km[:, None, :, None] == 0
     if case != "fully_masked_row":  # a fully masked row spreads its weight over every key
         assert bool((got[2].masked_select(pad) == 0).all() and (got[3].masked_select(pad) == 0).all())
+
+
+# bf16 (compute_dtype: bfloat16): the card's gate, of each output's largest
+# magnitude (chip_smoke.py and tests/test_torch_cuda.py hold the bf16
+# kernels to their plain versions within it)
+ATTN_BF16_REL = 2.0**-6
+LOG2E = np.float32(np.log2(np.e))
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to bf16, kept as fp32 values."""
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_kernel_tiles(q, k, v, key_mask, mult, g, tile=64):
+    """The bf16 kernels' algorithm in fp32 torch on bf16 values: the forward
+    streams 64-key tiles with an online max and sum of p̃ = exp2((x − m) ·
+    log2 e) (x: the scaled score plus the mask's bias), and bf16(p̃ ∘ μ) · v;
+    it keeps the output in fp32 (õ) beside the row max and sum. The backward
+    takes D = do · õ, sweeps the key tiles once for dq and the query tiles
+    for dk and dv, with ds = w ∘ (μ dP − D) · scale (0 where w is exactly 1)
+    and w ∘ μ rounded to bf16 before their products."""
+    B, H, T, hd = q.shape
+    scale = np.float32(1.0 / np.sqrt(hd))
+    q, k, v, g = (x.float() for x in (q, k, v, g))
+    mult = torch.ones((T, T)) if mult is None else mult.float()
+    bias = torch.where(key_mask != 0, 0.0, tattn.MASKED)[:, None, None, :]
+    tiles = [slice(k0, min(k0 + tile, T)) for k0 in range(0, T, tile)]
+
+    def exp_shifted(x, m):
+        return torch.exp2((x - m) * LOG2E)
+
+    m = torch.full((B, H, T, 1), -torch.inf)
+    l = torch.zeros((B, H, T, 1))
+    o = torch.zeros_like(q)
+    for j in tiles:
+        x = q @ k[:, :, j].transpose(-1, -2) * scale + bias[..., j]
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        corr = exp_shifted(m, m_new)
+        p = exp_shifted(x, m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + _bf16(p * mult[:, j]) @ v[:, :, j]
+        m = m_new
+    out32 = o / l
+    D = (g * out32).sum(dim=-1, keepdim=True)  # from the fp32 output, once a row
+
+    def pair(j_q, j_k):
+        x = q[:, :, j_q] @ k[:, :, j_k].transpose(-1, -2) * scale + bias[..., j_k]
+        w = exp_shifted(x, m[:, :, j_q]) * (1.0 / l[:, :, j_q])
+        mu = mult[j_q, j_k]
+        dp = g[:, :, j_q] @ v[:, :, j_k].transpose(-1, -2)
+        ds = torch.where(w == 1.0, 0.0, w * (mu * dp - D[:, :, j_q]) * scale)
+        return w, mu, _bf16(ds)
+
+    every = slice(0, T)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for j in tiles:  # the dq launch: one sweep of the key tiles
+        dq += pair(every, j)[2] @ k[:, :, j]
+    for i in tiles:  # the dk/dv launch: one owner per key, query tiles summed
+        w, mu, ds = pair(i, every)
+        dk += ds.transpose(-1, -2) @ q[:, :, i]
+        dv += _bf16(w * mu).transpose(-1, -2) @ g[:, :, i]
+    return _bf16(out32), out32, m[..., 0], l[..., 0], _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+@pytest.mark.parametrize("case", ["mult_and_padding", "fully_masked_row", "one_key_past_a_tile"])
+def test_bf16_kernel_tiling_matches_the_plain_versions(case):
+    """The bf16 kernels' arithmetic (exp2 over 64-key tiles, bf16(p̃ ∘ μ),
+    the fp32 output õ, D = do · õ, one key sweep for dq) against the plain
+    bf16 forward and backward within the card's gate — with a row of length
+    1, where μ dP − D must cancel, a fully masked row and a key one past a
+    tile — padded keys getting exactly zero dk and dv, the row statistics
+    the CPU custom op computes, and, at T = 1 (every row of length 1), dq and
+    dk exactly 0, as the plain backward gives them."""
+    t = 65 if case == "one_key_past_a_tile" else 150
+    lengths = {"mult_and_padding": [t, 1, 97], "fully_masked_row": [t, 0, 40],
+               "one_key_past_a_tile": [t, t - 1, 64]}[case]
+    rng = np.random.default_rng(40 + t)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(3, 2, t, 64)).astype(np.float32)).to(
+        torch.bfloat16) for _ in range(4))
+    km = torch.from_numpy(_key_mask(np.asarray(lengths), t).astype(np.int32))
+    mult = None if case == "fully_masked_row" else (
+        torch.from_numpy(rng.random((t, t)) >= 0.1).to(torch.bfloat16) / 0.9)
+    out, out32, row_max, row_sum, *grads = _bf16_kernel_tiles(q, k, v, km, mult, g)
+    want = (tattn.fused_attention_plain(q, k, v, km, mult),
+            *tattn.fused_attention_bwd_plain(q, k, v, km, mult, g))
+    for name, got, w in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
+        w = w.float()
+        torch.testing.assert_close(got, w, rtol=0, atol=ATTN_BF16_REL * float(w.abs().max()),
+                                   msg=name)
+    _, want32, want_max, want_sum = torch.ops.ssd_tpu_torch.attention_fwd_train(q, k, v, km, mult)
+    torch.testing.assert_close(out32, want32, rtol=0, atol=ATTN_BF16_REL * float(want32.abs().max()))
+    torch.testing.assert_close(row_max, want_max, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(row_sum, want_sum, rtol=1e-5, atol=0)
+    pad = km[:, None, :, None] == 0
+    if case != "fully_masked_row":  # a fully masked row spreads its weight over every key
+        assert bool((grads[1].masked_select(pad) == 0).all() and (grads[2].masked_select(pad) == 0).all())
+    one = _bf16_kernel_tiles(q[:, :, :1], k[:, :, :1], v[:, :, :1], km[:, :1] * 0 + 1,
+                             None if mult is None else mult[:1, :1], g[:, :, :1])
+    assert not one[4].any() and not one[5].any()

@@ -378,12 +378,16 @@ def test_attention_bf16_kernels_match_plain(cuda, B, T, H, hd, drop):
     q, k, v, g = (_bf16(t) for t in (q, k, v, g))
     mult = None if mult is None else _bf16(mult)
     before = (attn.ATTN_FWD_BF16.launches, attn.ATTN_BWD_BF16.launches, attn.ATTN_FWD.launches)
-    out, row_max, row_sum = attn.ATTN_FWD_BF16(q, k, v, mask, mult)
-    grads = attn.ATTN_BWD_BF16(q, k, v, out, g, row_max, row_sum, mask, mult)
+    out, out32, row_max, row_sum = attn.ATTN_FWD_BF16(q, k, v, mask, mult, fp32_out=True)
+    grads = attn.ATTN_BWD_BF16(q, k, v, out32, g, row_max, row_sum, mask, mult)
     torch.cuda.synchronize()
     assert (attn.ATTN_FWD_BF16.launches, attn.ATTN_BWD_BF16.launches, attn.ATTN_FWD.launches) == (
         before[0] + 1, before[1] + 1, before[2])
     assert out.dtype == torch.bfloat16 and row_max.dtype == row_sum.dtype == torch.float32
+    # the fp32 output is out before its rounding; the serving call computes the same
+    assert out32.dtype == torch.float32 and torch.equal(out, out32.to(torch.bfloat16))
+    for a, b in zip((out, row_max, row_sum), attn.ATTN_FWD_BF16(q, k, v, mask, mult)):
+        assert torch.equal(a, b)
     want = (attn.fused_attention_plain(q, k, v, mask, mult),
             *attn.fused_attention_bwd_plain(q, k, v, mask, mult, g))
     for name, got, w in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
@@ -393,9 +397,24 @@ def test_attention_bf16_kernels_match_plain(cuda, B, T, H, hd, drop):
                                    atol=ATTN_BF16_REL * float(w.abs().max()), msg=name)
     pad = mask[:, None, :, None] == 0
     assert bool((grads[1].masked_select(pad) == 0).all() and (grads[2].masked_select(pad) == 0).all())
-    again = attn.ATTN_BWD_BF16(q, k, v, out, g, row_max, row_sum, mask, mult)
+    again = attn.ATTN_BWD_BF16(q, k, v, out32, g, row_max, row_sum, mask, mult)
     for name, a, b in zip(("dq", "dk", "dv"), grads, again):
         assert torch.equal(a, b), name
+
+
+def test_attention_train_op_on_the_card(cuda):
+    """``ssd_tpu_torch::attention_fwd_train`` on the card: opcheck, the bf16
+    instance's four outputs, and the fp32 instance refusing fp32_out."""
+    q, k, v, g, mask, mult = _attn_case(2, 70, 2, 64, cuda, True)
+    qb, kb, vb, mb = (_bf16(t) for t in (q, k, v, mult))
+    torch.library.opcheck(torch.ops.ssd_tpu_torch.attention_fwd_train.default, (qb, kb, vb, mask, mb))
+    out, out32, row_max, row_sum = torch.ops.ssd_tpu_torch.attention_fwd_train(qb, kb, vb, mask, mb)
+    assert out32.dtype == torch.float32 and out32.is_contiguous()
+    assert torch.equal(out, out32.to(torch.bfloat16))
+    want = attn.fused_attention_plain(qb, kb, vb, mask, mb).float()
+    torch.testing.assert_close(out32, want, rtol=0, atol=ATTN_BF16_REL * float(want.abs().max()))
+    with pytest.raises(ValueError, match="fp32_out"):
+        attn.ATTN_FWD(q, k, v, mask, mult, fp32_out=True)
 
 
 def test_bf16_ops_reach_the_bf16_instances(cuda):
@@ -421,6 +440,38 @@ def test_bf16_ops_reach_the_bf16_instances(cuda):
 
 
 # ------------------------------------------------ LM-fused beam search
+
+
+@pytest.mark.parametrize("seed", [1, 6, 8])
+def test_beam_on_the_card_matches_the_cpu_on_flat_inputs(cuda, seed):
+    """Beam-50 (plain and LM-fused) on flat log-probs, where scores tie
+    exactly at the beam cut: the card's text is the CPU's, run after run —
+    ties break lower index first and no step adds atomically (the inputs
+    of scripts/beam_card_vs_cpu.py, seeds where the port used to part from
+    the JAX search)."""
+    from ssd_tpu_torch.data.vocab import default_vocab
+    from ssd_tpu_torch.decoding import device_lm as dl
+    from ssd_tpu_torch.decoding.lm import train_ngram
+    from ssd_tpu_torch.ops import ctc_decode as dec
+
+    vocab = default_vocab()
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(2, 640, vocab.size)).astype(np.float32) * (0.7, 1.0, 1.5)[seed % 3]
+    logits[:, :, vocab.blank_id] += 1.0
+    lp = torch.from_numpy(logits).log_softmax(-1)
+    lengths = torch.tensor([640, 560])
+    kw = dict(blank_id=vocab.blank_id, pad_id=vocab.pad_id, beam_width=50)
+
+    def texts(lp, lengths):
+        chars, parents, _ = dec.beam_search(lp, lengths, **kw)
+        return [vocab.decode(p) for p in dec.traceback(chars.cpu().numpy(), parents.cpu().numpy())]
+
+    want = texts(lp, lengths)
+    assert texts(lp.to(cuda), lengths.to(cuda)) == want == texts(lp.to(cuda), lengths.to(cuda))
+    table = dl.pack_lm(train_ngram(["the cat sat on the mat", "a dog ran far away"], order=3), vocab)
+    lm = dict(beam_width=50, alpha=0.6, beta=0.1)
+    assert (dl.beam_decode_lm_device(lp.to(cuda), lengths.to(cuda), vocab, table, **lm)
+            == dl.beam_decode_lm_device(lp, lengths, vocab, table, **lm))
 
 
 @pytest.mark.parametrize("order,width,top_k", [(3, 16, None), (5, 50, 16)])

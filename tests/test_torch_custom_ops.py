@@ -103,6 +103,43 @@ def test_attention_fwd_op_bf16(drop):
     assert torch.equal(attn.fused_attention(q, k, v, key_mask, mult), out)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_fwd_train_op(dtype):
+    """The training forward: ``attention_fwd``'s out and row statistics, and
+    the output in fp32 before its rounding, contiguous (B, H, T, hd); a
+    bf16 call that needs a gradient goes through it and its backward is the
+    plain one."""
+    rng = np.random.default_rng(12)
+    B, T, H, hd = 2, 9, 3, 8
+    q, k, v = (t.to(dtype) for t in _heads(rng, B, T, H, hd))
+    key_mask = torch.from_numpy((np.arange(T)[None, :] < np.array([[T], [4]])).astype(np.int32))
+    mult = (torch.from_numpy((rng.uniform(size=(T, T)) > 0.1).astype(np.float32)).to(dtype)
+            / 0.9)
+    args = (q, k, v, key_mask, mult)
+    torch.library.opcheck(torch.ops.ssd_tpu_torch.attention_fwd_train.default, args)
+    out, out32, row_max, row_sum = torch.ops.ssd_tpu_torch.attention_fwd_train(*args)
+    assert out32.dtype == torch.float32 and out32.shape == (B, H, T, hd) and out32.is_contiguous()
+    assert out.shape == (B, H, T, hd) and out.transpose(1, 2).is_contiguous()
+    for got, want in zip((out, row_max, row_sum), torch.ops.ssd_tpu_torch.attention_fwd(*args)):
+        assert torch.equal(got, want)
+    assert torch.equal(out, out32.to(dtype))
+    saved = []
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        y = attn.fused_attention(qg, kg, vg, key_mask, mult)
+    assert torch.equal(y, out)
+    if dtype == torch.bfloat16:  # the fp32 output is saved for the backward, not the bf16 one
+        assert any(t.dtype == torch.float32 and t.shape == out32.shape and torch.equal(t, out32)
+                   for t in saved)
+        assert not any(t.dtype == torch.bfloat16 and t.shape == out.shape and torch.equal(t, out)
+                       for t in saved)
+    g = torch.from_numpy(rng.normal(size=(B, H, T, hd)).astype(np.float32)).to(dtype)
+    (y.float() * g.float()).sum().backward()
+    want = attn.fused_attention_bwd_plain(q, k, v, key_mask, mult, g)
+    for got, w in zip((qg.grad, kg.grad, vg.grad), want):
+        assert torch.equal(got, w)
+
+
 def test_depthwise_fwd_op_bf16():
     rng = np.random.default_rng(4)
     x, w, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
