@@ -203,12 +203,48 @@ failing loudly:
              dropout 0.1; (e) a
              card-vs-CPU bf16 step at full width, depth cut to 2 blocks,
              B = 2. It prints its sub-steps' seconds.
+16. quantized serving — (a) ``torch._int_mm`` through ``ops/quant.py``'s
+             wrapper equal to its exact float64 twin at every eligible shape
+             (w1, w2, pw1, pw2) of tpu_fast_plus and tpu_scaled_large at
+             B = 1 and 8 (625 token rows a request) and at 5 rows (padded to
+             17), timed beside ``torch.matmul`` in fp32 (TF32 off) and bf16;
+             (b) tpu_fast_plus as shipped and fused/pallas with ``quantize:
+             int8`` and ``int8_prequant``, each through phase 3/4's counted
+             run (1 log-mel launch and 36 ``_int_mm`` calls a
+             ``transcribe``; fused, 6 attention- and 6 depthwise-forward
+             launches): block 0's four int8 Dense layers bit-equal card vs
+             CPU on one input, the forward bit-equal with ``_int_mm`` and
+             with the exact product, card vs CPU log-probs (mean gap within
+             √2 × the CPU's own int8-vs-float gap: fp32 noise flips
+             roundings), int8_prequant bit-equal to int8 on the card; (c)
+             greedy p50 at B = 1 and 8, float, int8 and int8_prequant; (d) an
+             exported int8_prequant call (36 ``aten._int_mm`` nodes, 36 int8
+             buffers, the engine's tokens) and a two-window stream; (e)
+             tpu_scaled_large in bf16 with int8_prequant at full width and
+             depth, B = 8, against the bf16 float engine, p50 beside it.
+17. data preparation — a synthetic corpus in the Gaddy & Klein layout (24
+             voiced utterances with FLAC audio, one in four at 22.05 kHz, 8
+             silent; 2–6 s of 8-channel 1 kHz EMG) through the port's CLIs
+             on the card: ``index_dataset --stats --durations``;
+             ``preprocessing --mode emg`` (one log-mel launch a batch), its
+             caches equal to the same CLI with ``--device cpu`` (atol = rtol
+             = 1e-4) and bit-equal with ``--no-double-buffer``;
+             ``preprocessing --mode teacher`` with a random full-width WavLM
+             Base+ (94 M parameters) written as a local safetensors file,
+             the caches held to the CPU teacher and to per-utterance card
+             runs (atol 2e-4, rtol 2e-3); utterances a second for each
+             mode; then ``train_from_config`` (fused/pallas, 2 overfit
+             batches: every fp32 kernel launches) and the eval CLI on the
+             result. It prints its sub-steps' seconds.
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
 
 The bf16 instances' entries of the kernels line are phase 15's (at B = 32,
-T′ 384), their launches its counted runs'.
+T′ 384), their launches its counted runs'. The fp32 kernels' launches add
+phases 16 and 17's counted runs. ``torch._int_mm`` is a library kernel, not
+a port of a TPU kernel: it is held to its plain twin and counted, and not
+listed in the kernels line.
 
 The last three lines of standard output are the kernel JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``. Any failure
@@ -240,6 +276,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ssd_tpu_torch.data import index_dataset, preprocessing
+from ssd_tpu_torch.data.audio import load_audio
 from ssd_tpu_torch.data.dataset import bf16_bits
 from ssd_tpu_torch.data.index_dataset import save_index
 from ssd_tpu_torch.data.vocab import Vocab, default_vocab
@@ -249,6 +287,7 @@ from ssd_tpu_torch.decoding import device_lm as dl
 from ssd_tpu_torch.decoding.host_beam import beam_search_lm_batch
 from ssd_tpu_torch.decoding.lm import NGramLM
 from ssd_tpu_torch.evaluation import evaluate as ev
+from ssd_tpu_torch.models import wavlm
 from ssd_tpu_torch.models.conformer import init_flax_style
 from ssd_tpu_torch.models.ssd_model import build_model
 from ssd_tpu_torch.ops import attention as attn
@@ -256,6 +295,7 @@ from ssd_tpu_torch.ops import ctc_loss as ctc
 from ssd_tpu_torch.ops import depthwise_conv as dwc
 from ssd_tpu_torch.ops import featurizer as feat
 from ssd_tpu_torch.ops import mel as melmod
+from ssd_tpu_torch.ops import quant
 from ssd_tpu_torch.ops.ctc_decode import greedy_decode, traceback
 from ssd_tpu_torch.serving import streaming
 from ssd_tpu_torch.serving.engine import InferenceEngine
@@ -548,13 +588,16 @@ def model_block(**enc) -> dict:
 
 def build_run_dir(run_dir: Path, **enc) -> Path:
     """The full-width model, random weights from ``SEED`` (the same weights
-    whatever ``enc`` selects), saved as a checkpoint under ``run_dir``."""
+    whatever ``enc`` selects), saved as a checkpoint under ``run_dir``. The
+    weights are float whatever ``quantize`` says: the engine quantizes them."""
     run_dir.mkdir(parents=True, exist_ok=True)
     vocab_path = run_dir / "vocab.json"
     default_vocab().to_json(vocab_path)
     cfg = {"data": {"vocab": str(vocab_path)}, "features": shipped_config()["features"],
            "model": model_block(**enc), "decoding": shipped_config()["decoding"]}
-    model = build_model(cfg, input_dim=encoder_key("input_dim"), vocab_size=48)
+    float_cfg = copy.deepcopy(cfg)
+    float_cfg["model"]["encoder"]["quantize"] = "none"
+    model = build_model(float_cfg, input_dim=encoder_key("input_dim"), vocab_size=48)
     init_flax_style(model, torch.Generator().manual_seed(SEED))
     with torch.no_grad():
         # ×10 CTC head: peaked log-probs, so text comparisons are not decided
@@ -710,7 +753,8 @@ COUNTERS = {"logmel": feat.LOGMEL, "ctc_alpha": ctc.CTC_ALPHA, "ctc_beta": ctc.C
             "attention_fwd": attn.ATTN_FWD, "attention_bwd": attn.ATTN_BWD,
             "depthwise_fwd": dwc.DW_FWD, "depthwise_bwd": dwc.DW_BWD,
             "attention_fwd_bf16": attn.ATTN_FWD_BF16, "attention_bwd_bf16": attn.ATTN_BWD_BF16,
-            "depthwise_fwd_bf16": dwc.DW_FWD_BF16, "depthwise_bwd_bf16": dwc.DW_BWD_BF16}
+            "depthwise_fwd_bf16": dwc.DW_FWD_BF16, "depthwise_bwd_bf16": dwc.DW_BWD_BF16,
+            "int_mm": quant.INT_MM}
 
 
 def reset_counts() -> None:
@@ -2858,6 +2902,511 @@ def phase_large(root: Path, rng: np.random.Generator, card: str) -> dict:
     return entries
 
 
+# ------------------------------------------ quantized serving (phase 16)
+
+H100_INT8_OPS = 1979e12  # dense int8 tensor cores, SXM, 700 W
+QUANT_MODES = ("int8", "int8_prequant")
+# quantized log-probs, card vs the CPU engine: the card's inputs differ
+# from the CPU's by fp32 rounding (the log-mel kernel, the float layers'
+# summation order), that noise flips roundings at .5 boundaries, and each
+# flip moves an activation a whole int8 step, which the following blocks
+# spread to every frame. So the card and the CPU carry two draws of the
+# quantization's noise: their mean gap is held to √2 × the mean gap between
+# int8 and float on the CPU (what two independent draws of that noise would
+# give); the share of values over 1e-3 is printed
+QUANT_NOISE = 2 ** 0.5
+QUANT_TOL = 1e-3
+PREQUANT_TOL = dict(rtol=1e-5, atol=1e-6)  # int8_prequant vs int8 (tests/test_quant.py's bound)
+QUANT_RUNS = 11  # alternating transcribes a configuration and batch: the p50 is their median
+TWO_WINDOW_SAMPLES = 8000  # 769 frames: two windows with S = 512
+T_SERVE = 625  # T' of the 12 800-sample bucket after both models' ×2 subsampler
+
+
+def eligible_shapes() -> dict:
+    """(K, N) of each Dense product the int8 path covers, for both models."""
+    out = {}
+    for name, enc in (("tpu_fast_plus", shipped_config()["model"]["encoder"]),
+                      ("tpu_scaled_large", large_config()["model"]["encoder"])):
+        d, f = enc["d_model"], enc["ffn_dim"]
+        out[name] = {"w1": (d, f), "w2": (f, d), "pw1": (d, 2 * d), "pw2": (d, d)}
+    return out
+
+
+def int_mm_check(rng: np.random.Generator, card: str) -> None:
+    """``torch._int_mm`` (through ``ops/quant.py``'s wrapper) equal to its
+    exact float64 twin at every eligible shape of both models at B = 1 and 8
+    (M = B × 625 token rows), and at 5 rows (the wrapper pads to 17); its
+    time beside ``torch.matmul`` at fp32 (TF32 off) and bf16."""
+    for model, shapes in eligible_shapes().items():
+        for name, (K, N) in shapes.items():
+            for B in (1, 8):
+                M = B * T_SERVE
+                a = torch.from_numpy(rng.integers(-127, 128, size=(M, K), dtype=np.int8)).cuda()
+                b = torch.from_numpy(rng.integers(-127, 128, size=(N, K), dtype=np.int8)).cuda()
+                got = quant.int8_matmul(a, b)
+                check(torch.equal(got, quant.int8_matmul_plain(a, b)),
+                      f"_int_mm {model} {name} B={B}: differs from the exact product")
+                af, bf = a.float(), b.float().t().contiguous()
+                ms = cuda_ms(lambda: quant.int8_matmul(a, b))
+                ms32 = cuda_ms(lambda: torch.matmul(af, bf))
+                ms16 = cuda_ms(functools.partial(torch.matmul, af.bfloat16(), bf.bfloat16()))
+                bound_ms, _ = bound(2 * M * K * N, M * K + N * K + 4 * M * N, H100_INT8_OPS)
+                print(f"[quant] _int_mm {model} {name} (M {M}, K {K}, N {N}; B={B}): equal to the "
+                      f"exact product; {ms:.4f} ms (bound {bound_ms:.4f} ms at 1 979 TOP/s int8) vs "
+                      f"torch.matmul fp32 {ms32:.4f} ms, bf16 {ms16:.4f} ms (CUDA events)")
+    a = torch.from_numpy(rng.integers(-127, 128, size=(5, 288), dtype=np.int8)).cuda()
+    b = torch.from_numpy(rng.integers(-127, 128, size=(1152, 288), dtype=np.int8)).cuda()
+    check(torch.equal(quant.int8_matmul(a, b), quant.int8_matmul_plain(a, b)),
+          "_int_mm at 5 rows (padded to 17) differs from the exact product")
+    print(f"[quant] _int_mm at 5 rows (padded to 17 inside the wrapper): equal; {card}")
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Route the int8 products through their exact float64 twin on the card
+    (the reference run); the main path never does this."""
+    mm = quant.int8_matmul
+    quant.int8_matmul = quant.int8_matmul_plain
+    try:
+        yield
+    finally:
+        quant.int8_matmul = mm
+
+
+def valid_abs(a: torch.Tensor, b: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """|a − b| on the valid frames of (B, T', V) log-probs, flattened."""
+    valid = torch.arange(a.shape[1])[None, :] < lengths[:, None]
+    return (a - b).abs()[valid]
+
+
+def quant_parity(ckpt: Path, float_ckpt: Path, engines: dict, batches: dict, mode: str) -> dict:
+    """The quantized forward on the card: each eligible Dense layer of block 0
+    equal bit for bit to the CPU's on the same input; the whole forward
+    bit-equal to the same forward with the exact plain product in place of
+    ``_int_mm``; against the CPU engine, whose inputs differ from the card's
+    by fp32 rounding, the mean gap within ``QUANT_NOISE`` × the
+    quantization's own (CPU int8 vs CPU float). Returns the card's log-probs
+    a batch size."""
+    cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu")
+    cpu_float = InferenceEngine.from_checkpoint(float_ckpt, device="cpu")
+    card_block = engines["greedy"].model.encoder.blocks[0]
+    cpu_block = cpu.model.encoder.blocks[0]
+    gen = torch.Generator().manual_seed(SEED)
+    for path in ("ffn1.w1", "ffn1.w2", "conv.pw1", "conv.pw2"):
+        card_dense, cpu_dense = card_block.get_submodule(path), cpu_block.get_submodule(path)
+        x = torch.randn((2, T_SERVE, cpu_dense.weight.shape[1]), generator=gen)
+        with torch.inference_mode():
+            got, want = card_dense(x.cuda()).cpu(), cpu_dense(x)
+        check(torch.equal(got, want), f"{mode}: block 0's {path} on the card differs from the "
+              f"CPU's on the same input (max abs {float((got - want).abs().max())})")
+    out = {}
+    for B, reqs in batches.items():
+        lp, ol = engines["greedy"].forward(reqs)
+        with plain_int8():
+            lp_plain, _ = engines["greedy"].forward(reqs)
+        check(torch.equal(lp, lp_plain), f"{mode} B={B}: the card's forward with _int_mm differs "
+              f"from the same forward with the exact product (max abs "
+              f"{float((lp - lp_plain).abs().max())})")
+        lp_cpu, ol_cpu = cpu.forward(reqs)
+        lp_float, _ = cpu_float.forward(reqs)
+        check(torch.equal(ol.cpu(), ol_cpu), f"{mode} B={B}: out lengths differ card vs CPU")
+        check(bool(torch.isfinite(lp).all()), f"{mode} B={B}: non-finite log-probs")
+        lp_host = lp.cpu()
+        err, q_gap = valid_abs(lp_host, lp_cpu, ol_cpu), valid_abs(lp_cpu, lp_float, ol_cpu)
+        check(float(err.mean()) <= QUANT_NOISE * float(q_gap.mean()), f"{mode} B={B}: card vs "
+              f"CPU log-probs mean abs err {float(err.mean())} > {QUANT_NOISE:.3f} × the "
+              f"quantization's own {float(q_gap.mean())}")
+        valid = torch.arange(lp.shape[1])[None, :] < ol_cpu[:, None]
+        same = (lp_host.argmax(-1) == lp_cpu.argmax(-1))[valid].float().mean()
+        same_q = (lp_float.argmax(-1) == lp_cpu.argmax(-1))[valid].float().mean()
+        print(f"[quant] {mode} B={B}: block 0's four int8 Dense layers bit-equal card vs CPU on one "
+              f"input; the forward bit-equal with _int_mm and with the exact product; card vs CPU "
+              f"engine log-probs mean abs err {float(err.mean()):.3e} (max {float(err.max()):.3e}; "
+              f"{float((err > QUANT_TOL).float().mean()):.4f} of the values over {QUANT_TOL}) "
+              f"against the quantization's own gap, CPU int8 vs float, mean "
+              f"{float(q_gap.mean()):.3e} (max {float(q_gap.max()):.3e}; ratio of the means "
+              f"{float(err.mean()) / float(q_gap.mean()):.3f}, gate {QUANT_NOISE:.3f}); greedy "
+              f"tokens equal card "
+              f"vs CPU on {float(same):.4f} of the valid frames, int8 vs float on the CPU on "
+              f"{float(same_q):.4f}")
+        out[B] = lp
+    return out
+
+
+def quant_latency(ckpts: dict, rng: np.random.Generator, card: str) -> None:
+    """Greedy p50 an utterance at B = 1 and 8, float, int8 and int8_prequant
+    engines on one checkpoint's weights, in alternating runs."""
+    engines = {name: InferenceEngine.from_checkpoint(ck, device="cuda") for name, ck in ckpts.items()}
+    for B in (1, 8):
+        reqs = [rng.normal(size=(12000, CHANNELS)).astype(np.float32) for _ in range(B)]
+        runs = {name: [] for name in engines}
+        for eng in engines.values():
+            eng.transcribe(reqs)  # warm
+        for _ in range(QUANT_RUNS):
+            for name, eng in engines.items():
+                t0 = time.perf_counter()
+                eng.transcribe(reqs)
+                runs[name].append((time.perf_counter() - t0) / B * 1e3)
+        print(f"[quant] greedy B={B} 12 000 samples p50 an utterance: " + ", ".join(
+            f"{name} {np.percentile(v, 50):.3f} ms" for name, v in runs.items())
+            + f" ({QUANT_RUNS} alternating runs, host clock, transcribe end to end); {card}")
+
+
+def quant_export_stream(ckpt: Path, engine: InferenceEngine, out: Path, rng: np.random.Generator,
+                        launches: Launches) -> None:
+    """An exported ``int8_prequant`` call (its graph holds ``aten._int_mm``
+    and int8 buffers) with the engine's tokens, and a two-window stream."""
+    L = encoder_key("num_layers")
+    export_checkpoint(ckpt, out, batch_sizes=(8,), sample_lengths=(BUCKET,),
+                      quantize="int8_prequant", device="cuda")
+    manifest = json.loads((out / "manifest.json").read_text())
+    check(manifest["quantize"] == "int8_prequant", f"manifest quantize {manifest['quantize']}")
+    exported = torch.export.load(out / manifest["buckets"][0]["file"])
+    nodes = [str(n.target) for n in exported.graph.nodes]
+    n_int_mm = nodes.count("aten._int_mm.default")
+    int8_bufs = sum(t.dtype == torch.int8 for t in exported.state_dict.values())
+    check(n_int_mm == 6 * L and int8_bufs == 6 * L,
+          f"exported graph: {n_int_mm} aten._int_mm nodes, {int8_bufs} int8 buffers")
+    artifact = ExportedTranscriber.load(out, device="cuda")
+    reqs = requests(rng, 8)
+    before = counts()
+    tokens, n_tok = artifact.call(reqs)
+    moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    lp, ol = engine.forward(reqs)
+    vocab = engine.vocab
+    want_tokens, want_n = greedy_decode(lp, ol, blank_id=vocab.blank_id, pad_id=vocab.pad_id)
+    check(np.array_equal(n_tok, want_n.cpu().numpy()) and np.array_equal(tokens, want_tokens.cpu().numpy()),
+          "the exported int8_prequant call's tokens differ from the engine's greedy decode")
+    print(f"[quant] exported int8_prequant (B 8, {BUCKET} samples) in "
+          f"{manifest['buckets'][0]['export_seconds']:.2f} s: {n_int_mm} aten._int_mm nodes, "
+          f"{int8_bufs} int8 weight buffers; its tokens equal the engine's greedy decode; launches "
+          f"of the call {moved}")
+    emg = rng.normal(size=(TWO_WINDOW_SAMPLES, CHANNELS)).astype(np.float32)
+    before = counts()
+    st, text, slp, _ = run_stream(engine, emg, chunk_frames=ONE_WINDOW_CHUNK)
+    check(st.windows == 2, f"the int8_prequant stream ran {st.windows} windows")
+    launches.add("the int8_prequant two-window stream", before, st.windows)
+    check(np.isfinite(slp).all() and slp.shape[0] > 0, "the stream's log-probs")
+    print(f"[quant] int8_prequant two-window stream ({TWO_WINDOW_SAMPLES} samples, S "
+          f"{ONE_WINDOW_CHUNK}): {st.windows} windows, {slp.shape[0]} frames emitted, text "
+          f"{text[:30]!r}")
+
+
+def phase_quant(root: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 16: int8 quantized serving. Returns the launches of its counted
+    runs."""
+    steps = {}
+    t0 = time.perf_counter()
+    int_mm_check(rng, card)
+    steps["_int_mm"] = time.perf_counter() - t0
+    L = encoder_key("num_layers")
+    totals = dict.fromkeys(COUNTERS, 0)
+    for fused in (False, True):
+        name = "fused" if fused else "shipped"
+        enc = FUSED if fused else {}
+        float_ckpt = build_run_dir(root / f"{name}_float", **enc)
+        for mode in QUANT_MODES:
+            t0 = time.perf_counter()
+            ckpt = build_run_dir(root / f"{name}_{mode}", quantize=mode, **enc)
+            per_call = {"logmel": 1, "int_mm": 6 * L}
+            if fused:
+                per_call.update(attention_fwd=L, depthwise_fwd=L)
+            engines, batches, launches = phase_main_path(ckpt, rng, sizes=(1, 8), per_call=per_call)
+            for k in totals:
+                totals[k] += launches[k]
+            lps = quant_parity(ckpt, float_ckpt, engines, batches, f"{name} {mode}")
+            if mode == "int8_prequant":
+                w1 = engines["greedy"].model.encoder.blocks[0].ffn1.w1
+                check(isinstance(w1, quant.QuantDense) and w1.weight.dtype == torch.int8,
+                      f"{name}: the int8_prequant engine holds {type(w1).__name__}")
+                dynamic = InferenceEngine.from_checkpoint(root / f"{name}_int8" / "last",
+                                                          device="cuda")
+                for B, reqs in batches.items():
+                    lp_int8 = dynamic.forward(reqs)[0]
+                    err = float((lps[B] - lp_int8).abs().max())
+                    check(close(lps[B], lp_int8, **PREQUANT_TOL),
+                          f"{name} B={B}: int8_prequant vs int8 on the card max abs err {err}")
+                    print(f"[quant] {name} B={B}: int8_prequant vs int8 on the card max abs err "
+                          f"{err:.3e} (tol {PREQUANT_TOL})")
+                if not fused:
+                    counted = Launches({"logmel": 1, "int_mm": 6 * L})
+                    quant_export_stream(ckpt, engines["greedy"], root / "export", rng, counted)
+                    for k in totals:
+                        totals[k] += counted.total[k]
+                    quant_latency({"float": float_ckpt, "int8": root / "shipped_int8" / "last",
+                                   "int8_prequant": ckpt}, rng, card)
+            del engines
+            steps[f"{name} {mode}"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = large_serving_model()
+    ckpt = large_run_dir(root / "large", model, quantize="int8_prequant")
+    fckpt = large_run_dir(root / "large_float", model)
+    del model
+    engine = InferenceEngine.from_checkpoint(ckpt, device="cuda")
+    fengine = InferenceEngine.from_checkpoint(fckpt, device="cuda")
+    reqs = [rng.normal(size=(12000, CHANNELS)).astype(np.float32) for _ in range(8)]
+    LL = large_key("num_layers")
+    before = counts()
+    hyps = engine.transcribe(reqs)
+    moved = {k: v - before[k] for k, v in counts().items()}
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(logmel=1, int_mm=6 * LL)
+    check(moved == want, f"tpu_scaled_large int8_prequant B=8 launched {moved}, expected {want}")
+    for k in totals:
+        totals[k] += moved[k]
+    lp, ol = engine.forward(reqs)
+    flp, fol = fengine.forward(reqs)
+    check(torch.equal(ol, fol) and bool(torch.isfinite(lp).all()), "large int8_prequant log-probs")
+    valid = (torch.arange(lp.shape[1], device=lp.device)[None, :] < ol[:, None])[..., None]
+    gap = float(((lp - flp) * valid).abs().max())
+    same = ((lp.argmax(-1) == flp.argmax(-1)) & valid[..., 0]).sum() / valid.sum()
+    runs = {"bf16": [], "bf16 + int8_prequant": []}
+    for _ in range(QUANT_RUNS):
+        for name, eng in (("bf16", fengine), ("bf16 + int8_prequant", engine)):
+            t1 = time.perf_counter()
+            eng.transcribe(reqs)
+            runs[name].append((time.perf_counter() - t1) / 8 * 1e3)
+    print(f"[quant] tpu_scaled_large bf16 int8_prequant at full width and depth, B=8: "
+          f"{len(hyps)} hypotheses, launches a transcribe {({k: v for k, v in moved.items() if v})}; "
+          f"log-probs vs the bf16 float engine max abs {gap:.3e}, greedy tokens equal on "
+          f"{float(same):.4f} of the valid frames; greedy p50 an utterance " + ", ".join(
+              f"{k} {np.percentile(v, 50):.3f} ms" for k, v in runs.items())
+          + f" ({QUANT_RUNS} alternating runs, host clock); {card}")
+    del engine, fengine
+    steps["tpu_scaled_large"] = time.perf_counter() - t0
+    print("[quant] phase 16 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    return totals
+
+
+# ----------------------------------------------- data preparation (phase 17)
+
+PREP_VOICED, PREP_SILENT = 24, 8
+PREP_SECONDS = (2.0, 6.0)
+AUDIO_SR, RESAMPLED_SR = 16000, 22050
+PREP_BATCH = 8
+TEACHER_TOL = dict(atol=2e-4, rtol=2e-3)  # tests/test_wavlm.py's bound
+FLAC_BLOCK = 4096
+
+
+def flac_bytes(pcm: np.ndarray, sample_rate: int) -> bytes:
+    """Mono 16-bit PCM as a FLAC stream of verbatim subframes (byte-aligned:
+    an 8-bit subframe header, then big-endian samples), 4 096 samples a
+    frame; the CRCs are left zero (the port's decoder does not check them)."""
+    n = len(pcm)
+    info = bytearray(34)
+    info[0:2] = info[2:4] = FLAC_BLOCK.to_bytes(2, "big")
+    info[10:18] = ((sample_rate << 44) | (15 << 36) | n).to_bytes(8, "big")  # 1 channel, 16 bits
+    out = [b"fLaC", bytes([0x80, 0, 0, 34]), bytes(info)]
+    for f, start in enumerate(range(0, n, FLAC_BLOCK)):
+        chunk = pcm[start: start + FLAC_BLOCK]
+        out.append(bytes([0xFF, 0xF8, 0x70, 0x08, f]) + (len(chunk) - 1).to_bytes(2, "big") + b"\0")
+        out.append(b"\x02" + chunk.astype(">i2").tobytes() + b"\0\0")
+    return b"".join(out)
+
+
+def gaddy_tree(root: Path, rng: np.random.Generator) -> tuple:
+    """A synthetic corpus in the Gaddy & Klein layout: voiced utterances with
+    8-channel 1 kHz EMG and FLAC audio (at 16 kHz, one in four at 22.05 kHz),
+    silent ones with EMG only. Returns (root, {utterance stem: seconds})."""
+    chars = list("abcdefghijklmnopqrstuvwxyz") + [" "] * 6
+    seconds = {}
+    for split, count in (("voiced_parallel_data", PREP_VOICED), ("silent_parallel_data", PREP_SILENT)):
+        for i in range(count):
+            d = root / split / f"5-{i % 3}"
+            d.mkdir(parents=True, exist_ok=True)
+            sec = float(rng.uniform(*PREP_SECONDS))
+            stem = f"{i}"
+            seconds[f"{split}/{d.name}/{stem}"] = sec
+            np.save(d / f"{stem}_emg.npy",
+                    (rng.normal(size=(int(sec * 1000), CHANNELS)) * 30).astype(np.float32))
+            text = "".join(rng.choice(chars, size=int(rng.integers(20, 60)))).strip() or "a"
+            (d / f"{stem}_info.json").write_text(json.dumps(
+                {"text": text, "sentence_index": i, "book": "synthetic"}))
+            if split == "voiced_parallel_data":
+                sr = RESAMPLED_SR if i % 4 == 3 else AUDIO_SR
+                t = np.arange(int(sec * sr)) / sr
+                wave_ = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 300) * t) + \
+                    0.05 * rng.normal(size=t.shape)
+                pcm = np.clip(wave_ * 32767, -32768, 32767).astype(np.int16)
+                (d / f"{stem}_audio_clean.flac").write_bytes(flac_bytes(pcm, sr))
+    return root, seconds
+
+
+def random_wavlm(path: Path) -> None:
+    """A full-width WavLM Base+ (94 M parameters) with seeded random weights,
+    written with the port's safetensors writer in the HF layout (weight-normed
+    positional conv, ``wavlm.`` prefix)."""
+    torch.manual_seed(SEED)
+    model = wavlm.WavLMModel(wavlm.WavLMConfig())
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("gru_rel_pos_const"):
+                continue
+            if p.dim() > 1:
+                p.normal_(0.0, 0.02 if "rel_attn_embed" not in name else 1.0)
+    state = {f"wavlm.{k}": v.numpy() for k, v in model.state_dict().items()}
+    w = state.pop("wavlm.encoder.pos_conv_embed.conv.weight")
+    norm = np.sqrt((w ** 2).sum(axis=(0, 1), keepdims=True))
+    state["wavlm.encoder.pos_conv_embed.conv.weight_g"] = norm
+    state["wavlm.encoder.pos_conv_embed.conv.weight_v"] = w
+    wavlm.save_safetensors(state, path)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[prep] random WavLM Base+ ({n / 1e6:.2f} M parameters) written to {path.name} "
+          f"({path.stat().st_size / 2**20:.1f} MiB)")
+
+
+def caches(out: Path) -> dict:
+    return {str(p.relative_to(out)): np.load(p) for p in sorted(out.rglob("*.npy"))}
+
+
+def phase_prepare(root: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 17: raw corpus → index → EMG and teacher caches → train →
+    evaluate, through the port's CLIs on the card. Returns the launches."""
+    steps = {}
+    totals = dict.fromkeys(COUNTERS, 0)
+    t0 = time.perf_counter()
+    data, seconds = gaddy_tree(root / "emg_data", rng)
+    weights = root / "wavlm-base-plus.safetensors"
+    random_wavlm(weights)
+    steps["corpus"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    index = root / "index.jsonl"
+    index_dataset.main(["--root", str(data), "--out", str(index), "--stats", "--durations"])
+    rows = index_dataset.load_index(index)
+    voiced = [r for r in rows if r["split"] == "voiced_parallel_data"]
+    check(len(rows) == PREP_VOICED + PREP_SILENT and all(r["has_audio"] for r in voiced),
+          f"the index holds {len(rows)} rows, {sum(r['has_audio'] for r in rows)} with audio")
+    subsets = {s: sum(r["subset"] == s for r in voiced) for s in ("train", "val", "test")}
+    print(f"[prep] index: {len(rows)} rows ({len(voiced)} voiced), voiced subsets {subsets}")
+    steps["index"] = time.perf_counter() - t0
+
+    emg_argv = ["--mode", "emg", "--index", str(index), "--root", str(data), "--emg-n-fft", "320",
+                "--emg-hop-length", "10", "--batch-size", str(PREP_BATCH)]
+    outs = {}
+    for name, extra in (("card", ["--device", "cuda"]),
+                        ("card_single", ["--device", "cuda", "--no-double-buffer"]),
+                        ("cpu", ["--device", "cpu"])):
+        outs[name] = root / "features" / "emg" if name == "card" else root / f"emg_{name}"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preprocessing.main(emg_argv + ["--out", str(outs[name])] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        batches = -(-len(rows) // PREP_BATCH)
+        want = dict.fromkeys(COUNTERS, 0)
+        if name != "cpu":
+            want["logmel"] = batches
+        check(c == want, f"preprocessing --mode emg ({name}) launched {c}, expected {want}")
+        if name == "card":
+            for k in totals:
+                totals[k] += c[k]
+        print(f"[prep] --mode emg ({name}): {len(rows)} utterances in {wall:.2f} s, "
+              f"{len(rows) / wall:.2f} utterances/s (the CLI call, host clock); launches "
+              f"{({k: v for k, v in c.items() if v})}; {card}")
+        steps[f"emg {name}"] = wall
+    card_c, single_c, cpu_c = (caches(outs[k]) for k in ("card", "card_single", "cpu"))
+    check(card_c.keys() == cpu_c.keys() == single_c.keys() and len(card_c) == len(rows),
+          f"EMG caches: {len(card_c)} card, {len(cpu_c)} CPU")
+    err = max(float(np.abs(card_c[k] - cpu_c[k]).max()) for k in card_c)
+    for k in card_c:
+        check(np.allclose(card_c[k], cpu_c[k], **FEAT_TOL), f"EMG cache {k}: card vs CPU")
+        check(np.array_equal(card_c[k], single_c[k]), f"EMG cache {k}: double vs single buffered")
+    print(f"[prep] EMG caches: card vs CPU max abs err {err:.3e} (tol {FEAT_TOL}); double-buffered "
+          f"equal bit for bit to single-buffered")
+
+    t0 = time.perf_counter()
+    teacher_out = root / "features" / "teacher"
+    teacher_argv = ["--mode", "teacher", "--index", str(index), "--root", str(data), "--out",
+                    str(teacher_out), "--teacher-model", str(weights), "--batch-size",
+                    str(PREP_BATCH), "--device", "cuda"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preprocessing.main(teacher_argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tcache = caches(teacher_out)
+    check(len(tcache) == len(voiced), f"{len(tcache)} teacher caches for {len(voiced)} voiced rows")
+    print(f"[prep] --mode teacher (random full-width WavLM Base+, layer 9): {len(voiced)} "
+          f"utterances in {wall:.2f} s, {len(voiced) / wall:.2f} utterances/s (the CLI call, host "
+          f"clock, the {weights.stat().st_size / 2**20:.0f} MiB weights' load included); {card}")
+    steps["teacher card"] = wall
+
+    t0 = time.perf_counter()
+    shortest = sorted(voiced, key=lambda r: seconds[r["utterance_id"]])[:2]
+    resampled = next(r for r in sorted(voiced, key=lambda r: seconds[r["utterance_id"]])
+                     if int(r["stem"]) % 4 == 3)
+    cpu_t = wavlm.WavLMTeacher.from_pretrained(str(weights), layer=9, device="cpu")
+    card_t = wavlm.WavLMTeacher.from_pretrained(str(weights), layer=9, device="cuda")
+    errs = []
+    for r in shortest + [resampled]:
+        audio = load_audio(data / r["audio_path"], 16000)
+        cached = tcache[f"{r['utterance_id']}.npy"]
+        single = card_t.extract(audio)
+        for what, want in (("the CPU teacher", cpu_t.extract(audio) if r in shortest else None),
+                           ("the card's per-utterance run", single)):
+            if want is None:
+                continue
+            check(cached.shape == want.shape and np.allclose(cached, want, **TEACHER_TOL),
+                  f"teacher cache {r['utterance_id']} vs {what}: max abs err "
+                  f"{float(np.abs(cached - want).max()) if cached.shape == want.shape else 'shape'}")
+            errs.append(float(np.abs(cached - want).max()))
+    print(f"[prep] teacher caches (batched on the card) vs the CPU teacher on the two shortest "
+          f"utterances and vs per-utterance card runs (one resampled from 22.05 kHz): max abs err "
+          f"{max(errs):.3e} (tol {TEACHER_TOL}); features {next(iter(tcache.values())).shape[1]}-d")
+    del cpu_t, card_t
+    steps["teacher checks"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    vocab_path = root / "vocab.json"
+    default_vocab().to_json(vocab_path)
+    cfg = copy.deepcopy(shipped_config())
+    cfg["data"].update(index=str(index), features_root=str(root / "features"), vocab=str(vocab_path),
+                       val_subsets=["val", "test"])
+    cfg["model"]["encoder"].update(FUSED)
+    cfg["optim"]["max_epochs"] = 1
+    L = encoder_key("num_layers")
+    reset_counts()
+    summary = trainer.train_from_config(cfg, root / "run", overfit_batches=2, device="cuda")
+    c = counts()
+    n_train, n_eval = check_epoch(summary["history"][0], "prepared")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(ctc_alpha=n_train + n_eval, ctc_beta=n_train,
+                attention_fwd=L * (n_train + n_eval), depthwise_fwd=L * (n_train + n_eval),
+                attention_bwd=L * n_train, depthwise_bwd=L * n_train)
+    check(n_train == 2 and c == want, f"training from the prepared caches launched {c} in "
+          f"{n_train} steps, expected {want}")
+    for k in totals:
+        totals[k] += c[k]
+    h = summary["history"][0]
+    print(f"[prep] trained from the caches (fused/pallas): {n_train} train + {n_eval} eval steps, "
+          f"train total {h['train']['total']:.4f} (distill {h['train']['distill']:.4f}), val total "
+          f"{h['val']['total']:.4f}; launches {({k: v for k, v in c.items() if v})}")
+    steps["train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = root / "eval"
+    reset_counts()
+    ev.main(["--checkpoint", str(root / "run" / "last"), "--device", "cuda", "--output", str(out),
+             "--batch-size", "4"])
+    c = counts()
+    metrics = json.loads((out / "metrics.json").read_text())
+    check(np.isfinite(metrics["wer"]) and np.isfinite(metrics["cer"]), f"eval metrics {metrics}")
+    check(c["attention_fwd"] > 0 and c["attention_fwd"] == c["depthwise_fwd"],
+          f"the eval CLI launched {c}")
+    for k in totals:
+        totals[k] += c[k]
+    print(f"[prep] eval CLI on the trained checkpoint: {metrics['data']['num_samples']} utterances, "
+          f"WER {metrics['wer']:.4f} CER {metrics['cer']:.4f}; launches "
+          f"{({k: v for k, v in c.items() if v})}")
+    steps["evaluate"] = time.perf_counter() - t0
+    print("[prep] phase 17 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
@@ -2899,21 +3448,25 @@ def main() -> int:
         lm_served = timed("lm fusion", phase_lm, train_dir, run_dir / "fused" / "last", rng, card)
         streamed = timed("streaming+export", phase_stream_export, train_dir, rng, card)
         large = timed("tpu_scaled_large bf16", phase_large, run_dir / "large", rng, card)
+        quantized = timed("quantized serving", phase_quant, run_dir / "quant", rng, card)
+        prepared = timed("data preparation", phase_prepare, run_dir / "prep", rng, card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    entry["launches"] += evaluated["logmel"] + lm_served["logmel"] + streamed["logmel"]
+    entry["launches"] += (evaluated["logmel"] + lm_served["logmel"] + streamed["logmel"]
+                          + quantized["logmel"] + prepared["logmel"])
     kernels = [entry]
     for name in ("alpha", "beta"):
         e = ctc_out["entries"][name]
-        e["launches"] = train_counts[f"ctc_{name}"]
+        e["launches"] = train_counts[f"ctc_{name}"] + prepared[f"ctc_{name}"]
         kernels.append(e)
     for name in ("attention_fwd", "attention_bwd", "depthwise_fwd", "depthwise_bwd"):
         e = new_out["entries"][name]
-        # phase 11's two counted runs, phase 12's, 13's and 14's
+        # phase 11's two counted runs, phase 12's, 13's, 14's, 16's and 17's
         e["launches"] = (served[name] + trained[name] + evaluated[name] + lm_served[name]
-                         + streamed[name])
+                         + streamed[name] + quantized[name] + prepared[name])
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
+    check(quantized["int_mm"] > 0, "torch._int_mm was never launched on the quantized path")
     kernels += list(large.values())
     print(f"[time] total {sum(seconds.values()):.2f} s")
     print(json.dumps({"kernels": kernels}))

@@ -22,11 +22,11 @@ depthwise CUDA kernels. Decoding runs on the same device
 (:mod:`ssd_tpu_torch.decoding.ctc`); ``--lm-path`` (or the config's
 ``decoding.lm_path``) fuses an ARPA LM into the beam, on the device or, with
 ``--lm-backend host``, in the host search; a path that does not exist is
-logged and the beam decodes without it. A missing card raises. Not ported
-yet, and raising with their ROADMAP.md item: quantization (``--quantize
-int8``, ``int8_prequant`` or a checkpoint's ``encoder.quantize``; queue 1
-item 9) and ``--data-parallel`` (item 10). ``--compile-cache`` has no
-PyTorch counterpart and is logged as unused.
+logged and the beam decodes without it. ``--quantize int8|int8_prequant``
+(or a checkpoint's ``encoder.quantize``) evaluates the int8 forward
+(``ops/quant.py``). A missing card raises. Not ported yet, and raising
+with its ROADMAP.md item: ``--data-parallel`` (queue 1 item 10).
+``--compile-cache`` has no PyTorch counterpart and is logged as unused.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from ssd_tpu_torch.decoding.ctc import build_decoder
 from ssd_tpu_torch.evaluation.metrics import compute_error_breakdown, compute_metrics
 from ssd_tpu_torch.models.ssd_model import build_model
 from ssd_tpu_torch.ops.featurizer import FeaturizerConfig, logmel_batch
+from ssd_tpu_torch.ops.quant import maybe_prequantize
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, load_config_for
 from ssd_tpu_torch.training.train import _not_ported
 from ssd_tpu_torch.utils.device import resolve_device
@@ -129,7 +130,9 @@ def evaluate_checkpoint(
         enc_cfg["input_dim"] = int(input_dim)
 
     model = build_model(cfg, input_dim=int(input_dim), vocab_size=vocab.size)
-    model.load_state_dict(load_checkpoint(ckpt_path)["state_dict"])
+    # int8_prequant: the eligible weights converted once, at load
+    model.load_state_dict(maybe_prequantize(load_checkpoint(ckpt_path)["state_dict"],
+                                            model.encoder_cfg))
     forward = make_forward(model.to(dev).eval(), featurize_cfg=feat_cfg)
 
     refs: List[str] = []
@@ -201,7 +204,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--quantize",
         choices=["none", "int8", "int8_prequant"],
-        help="Only 'none' is ported yet. Default: the checkpoint config's encoder.quantize.",
+        help="Inference-time dense quantization (ops/quant.py): int8 quantizes the FFN "
+        "and pointwise products on the fly, int8_prequant converts their weights once. "
+        "Default: the checkpoint config's encoder.quantize.",
     )
     p.add_argument(
         "--lm-backend", choices=["device", "host"], default="device",
@@ -227,9 +232,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = load_config_for(ckpt_path)
     if args.quantize is not None:
         cfg["model"]["encoder"]["quantize"] = args.quantize
-    quantize = cfg["model"]["encoder"].get("quantize", "none")
-    if quantize != "none":
-        raise _not_ported(f"quantize={quantize!r}", "queue 1 item 9")
     data_cfg = cfg["data"]
 
     splits = args.splits or data_cfg.get("val_splits", ["voiced_parallel_data"])

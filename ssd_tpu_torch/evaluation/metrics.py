@@ -3,21 +3,39 @@
 
 Edit distances come from an O(N·M) dynamic program over token lists that
 also counts insertions, deletions, substitutions and hits, tie-breaking as
-the JAX package does: minimal cost, then maximal hits. The JAX package runs
-the same program natively when its ``native/edit_distance.cpp`` library is
-built; that only buys speed, and the port takes the Python program
-(ROADMAP.md lists the native loader as open). Rates pool the counts over
-the corpus (jiwer's convention).
+the JAX package does: minimal cost, then maximal hits. It runs in the
+port's host library (``ssd_tpu_torch/native/edit_distance.cpp`` through
+:mod:`ssd_tpu_torch.utils.native`, tokens hashed to int32 ids here);
+:func:`_edit_counts_py` is the same program in Python, the reference the
+tests hold it to. Rates pool the counts over the corpus (jiwer's
+convention).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
+
+from ssd_tpu_torch.utils import native
+
 _COUNTS = ("cost", "insertions", "deletions", "substitutions", "hits")
+_I32P = ctypes.POINTER(ctypes.c_int32)
 
 
 def _edit_counts(ref: List[str], hyp: List[str]) -> Dict[str, int]:
+    """(cost, ins, del, sub, hits) of ``ref`` → ``hyp``, in the host library."""
+    table: Dict[str, int] = {}
+    r, h = (np.asarray([table.setdefault(t, len(table)) for t in tokens], dtype=np.int32)
+            for tokens in (ref, hyp))
+    out = np.zeros(5, dtype=np.int32)
+    native.load().edit_distance_counts(r.ctypes.data_as(_I32P), len(r), h.ctypes.data_as(_I32P),
+                                       len(h), out.ctypes.data_as(_I32P))
+    return dict(zip(_COUNTS, (int(v) for v in out)))
+
+
+def _edit_counts_py(ref: List[str], hyp: List[str]) -> Dict[str, int]:
     """(cost, ins, del, sub, hits) DP over token lists; two-row rolling."""
     n, m = len(ref), len(hyp)
     # rows of (cost, ins, del, sub, hits); a cell keeps the least cost, then the most hits

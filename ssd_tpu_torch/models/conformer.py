@@ -39,6 +39,14 @@ The recompute draws the forward's dropout masks again from the caller's
 generator and leaves ``MaskedBatchNorm``'s running statistics alone, so
 gradients and buffers equal an un-rematted step's.
 
+``quantize`` (``ssd_tpu/models/conformer.py:168-200``) covers the FFN's
+``w1``/``w2`` and the conv module's ``pw1``/``pw2``: ``int8`` quantizes
+them on every call that is not training (a float checkpoint serves
+quantized; training is float), ``int8_prequant`` holds them as int8 weights
+with per-channel scales (``ops/quant.py``'s :class:`QuantDense`, loaded
+from :func:`~ssd_tpu_torch.ops.quant.prequantize_state_dict`'s output) and
+raises in training.
+
 Two config keys pick the implementation of two ops without changing the
 parameters, so a checkpoint of either choice loads into the other:
 ``attention_impl`` (``flax``: the composite softmax attention; ``fused``:
@@ -68,6 +76,7 @@ from torch.utils.checkpoint import (
 from ssd_tpu_torch.ops.attention import fused_attention
 from ssd_tpu_torch.ops.depthwise_conv import depthwise_conv1d
 from ssd_tpu_torch.ops.dropout import dropout, keep_multiplier
+from ssd_tpu_torch.ops.quant import QuantDense, int8_linear
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -135,15 +144,33 @@ def _length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
 
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to
-    ``dtype``, the product and the output in it; the parameters stay fp32."""
+    ``dtype``, the product and the output in it; the parameters stay fp32.
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
+    ``quantize="int8"`` is the JAX package's ``int8_dot_general`` hook: when
+    not training, the cast input and weight are quantized on the fly and
+    multiplied in int8 (``ops/quant.py``), the result cast to ``dtype`` and
+    the bias added in it; training runs the float product."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32,
+                 quantize: str = "none"):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
+        self.quantize = quantize
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.quantize == "int8" and not train:
+            return int8_linear(x.to(dt), self.weight.to(dt)).to(dt) + self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def _dense(in_features: int, out_features: int, dtype: torch.dtype, quantize: str) -> nn.Module:
+    """An eligible Dense layer (``ssd_tpu/models/conformer.py:_dense_cls``):
+    :class:`QuantDense` under ``int8_prequant``, else :class:`Dense` with
+    the ``int8`` hook or without."""
+    if quantize == "int8_prequant":
+        return QuantDense(in_features, out_features, dtype)
+    return Dense(in_features, out_features, dtype, quantize)
 
 
 class Conv1d(nn.Conv1d):
@@ -258,16 +285,16 @@ def _remat(fn: Callable, x: torch.Tensor, generator: Optional[torch.Generator],
 
 class _FeedForward(nn.Module):
     def __init__(self, d_model: int, ffn_dim: int, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quantize: str = "none"):
         super().__init__()
         self.dropout = dropout
         self.ln = LayerNorm(d_model)
-        self.w1 = Dense(d_model, ffn_dim, dtype)
-        self.w2 = Dense(ffn_dim, d_model, dtype)
+        self.w1 = _dense(d_model, ffn_dim, dtype, quantize)
+        self.w2 = _dense(ffn_dim, d_model, dtype, quantize)
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
-        x = _drop(F.silu(self.w1(self.ln(x))), self.dropout, train, generator)
-        return _drop(self.w2(x), self.dropout, train, generator)
+        x = _drop(F.silu(self.w1(self.ln(x), train)), self.dropout, train, generator)
+        return _drop(self.w2(x, train), self.dropout, train, generator)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -325,13 +352,14 @@ class _ConvModule(nn.Module):
         dropout: float = 0.0,
         depthwise_impl: str = "lax",
         dtype: torch.dtype = torch.float32,
+        quantize: str = "none",
     ):
         super().__init__()
         self.conv_norm = conv_norm
         self.dropout = dropout
         self.depthwise_impl = depthwise_impl
         self.ln = LayerNorm(d_model)
-        self.pw1 = Dense(d_model, 2 * d_model, dtype)
+        self.pw1 = _dense(d_model, 2 * d_model, dtype, quantize)
         self.dw = Conv1d(
             d_model, d_model, kernel_size, padding=(kernel_size - 1) // 2, groups=d_model,
             dtype=dtype,
@@ -340,12 +368,12 @@ class _ConvModule(nn.Module):
             self.bn = MaskedBatchNorm(d_model)
         else:
             self.cn = LayerNorm(d_model)
-        self.pw2 = Dense(d_model, d_model, dtype)
+        self.pw2 = _dense(d_model, d_model, dtype, quantize)
 
     def forward(
         self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None
     ) -> torch.Tensor:
-        a, b = self.pw1(self.ln(x)).chunk(2, dim=-1)
+        a, b = self.pw1(self.ln(x), train).chunk(2, dim=-1)
         x = a * torch.sigmoid(b)  # GLU
         # zero padded frames so the depthwise conv sees the same zeros a
         # shorter bucket would — exact padding invariance
@@ -359,7 +387,7 @@ class _ConvModule(nn.Module):
         else:
             x = self.dw(x.transpose(1, 2)).transpose(1, 2)
         x = self.bn(x, pad_mask, train) if self.conv_norm == "batch" else self.cn(x)
-        return _drop(self.pw2(F.silu(x)), self.dropout, train, generator)
+        return _drop(self.pw2(F.silu(x), train), self.dropout, train, generator)
 
 
 class _MultiHeadAttention(nn.Module):
@@ -439,15 +467,16 @@ class _SelfAttention(nn.Module):
 class ConformerBlock(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        p, dt = cfg.dropout, cfg.dtype
+        p, dt, q = cfg.dropout, cfg.dtype, cfg.quantize
         # attention-only remat, unless the whole block is rematerialized
         self.attn_remat = cfg.attn_remat and not cfg.remat
-        self.ffn1 = _FeedForward(cfg.d_model, cfg.ffn_dim, p, dt)
+        self.ffn1 = _FeedForward(cfg.d_model, cfg.ffn_dim, p, dt, q)
         self.attn = _SelfAttention(cfg.d_model, cfg.num_heads, p, cfg.attention_impl, dt)
         self.conv = _ConvModule(
-            cfg.d_model, cfg.depthwise_conv_kernel_size, cfg.conv_norm, p, cfg.depthwise_impl, dt
+            cfg.d_model, cfg.depthwise_conv_kernel_size, cfg.conv_norm, p, cfg.depthwise_impl, dt,
+            q,
         )
-        self.ffn2 = _FeedForward(cfg.d_model, cfg.ffn_dim, p, dt)
+        self.ffn2 = _FeedForward(cfg.d_model, cfg.ffn_dim, p, dt, q)
         self.final_ln = LayerNorm(cfg.d_model)
 
     def forward(

@@ -12,7 +12,10 @@ tensors ``SSDModel.load_state_dict`` expects:
   Linear ``(H·hd, D)``; ``out`` ``(H, hd, D)`` → Linear ``(D, H·hd)``;
 * LayerNorm / MaskedBatchNorm ``scale``/``bias`` → ``weight``/``bias``,
   BN ``batch_stats`` ``mean``/``var`` → buffers;
-* the ``scan_layers`` stacked ``blocks/block`` layout, unstacked in numpy.
+* the ``scan_layers`` stacked ``blocks/block`` layout, unstacked in numpy;
+* an ``int8_prequant`` tree's int8 ``kernel`` ``(in, out)`` and ``scale``
+  ``(out,)`` → an int8 ``weight`` ``(out, in)`` and the ``scale``
+  (``ops/quant.py``'s ``QuantDense``).
 
 Pure numpy + torch: nothing here imports JAX.
 """
@@ -48,7 +51,11 @@ def _t(a) -> torch.Tensor:
 
 
 def _dense(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    return {"weight": _t(np.asarray(p["kernel"]).T), "bias": _t(p["bias"])}
+    kernel = np.asarray(p["kernel"])
+    if kernel.dtype == np.int8:  # an int8_prequant leaf: int8 kernel + scale
+        return {"weight": torch.from_numpy(np.ascontiguousarray(kernel.T)),
+                "scale": _t(p["scale"]), "bias": _t(p["bias"])}
+    return {"weight": _t(kernel.T), "bias": _t(p["bias"])}
 
 
 def _conv(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -10,7 +10,10 @@ bf16 the way the JAX package's flax ``dtype=`` does (parameters fp32,
 log-probs and the student representation fp32); ``remat``,
 ``remat_policy`` and ``attn_remat`` rematerialize blocks in the backward;
 ``scan_layers`` feeds the blocks an fp32 carry, as the JAX package's scan
-does (the weight bridge unstacks a ``scan_layers`` tree). Values that
+does (the weight bridge unstacks a ``scan_layers`` tree); ``quantize:
+int8`` / ``int8_prequant`` serve the FFN and pointwise Dense layers in int8
+(``ops/quant.py``; an ``int8_prequant`` model loads a state dict that
+``prequantize_state_dict`` converted). Values that
 select a path the port does not have yet raise ``NotImplementedError``
 naming the ROADMAP item that will; ``sequence_parallel``, a mesh
 annotation, is accepted and ignored on one device.
@@ -109,8 +112,6 @@ def build_model(cfg: Dict[str, Any], input_dim: int, vocab_size: int) -> SSDMode
             f"model.encoder.quantize must be 'none', 'int8', or "
             f"'int8_prequant', got {encoder_cfg.quantize!r}"
         )
-    if encoder_cfg.quantize != "none":
-        raise _not_ported("quantize", encoder_cfg.quantize, "queue 1 item 9")
     if encoder_cfg.pipeline_microbatches > 0:
         raise _not_ported(
             "pipeline_microbatches", encoder_cfg.pipeline_microbatches, "queue 1 item 10"

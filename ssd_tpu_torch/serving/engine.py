@@ -8,8 +8,11 @@ The chain is the CUDA log-mel kernel (``ops/featurizer.py``), the Conformer
 encoder and CTC head, and greedy or beam CTC decoding on the device — with
 an ARPA ``lm_path`` the beam fuses the n-gram LM on the device
 (``decoding/device_lm.py``); only the decoded tokens or backpointers come
-back to the host. Requests pad to the JAX engine's
-buckets — raw samples to ``SAMPLE_BUCKET`` multiples, batches to
+back to the host. ``quantize`` (``int8`` / ``int8_prequant``) overrides the
+config's ``encoder.quantize``: the FFN and pointwise Dense layers run int8
+products (``ops/quant.py``; ``torch._int_mm`` on the card), and
+``int8_prequant`` converts their weights once, at load. Requests pad to the
+JAX engine's buckets — raw samples to ``SAMPLE_BUCKET`` multiples, batches to
 ``BATCH_BUCKETS`` — so both packages see the same shapes and padded rows
 (length ``n_fft``) for the same request.
 
@@ -19,6 +22,7 @@ missing card raises.
 
 from __future__ import annotations
 
+import copy
 import logging
 import threading
 import time
@@ -33,6 +37,7 @@ from ssd_tpu_torch.data.vocab import Vocab
 from ssd_tpu_torch.decoding.ctc import build_beam_decoder, build_greedy_decoder
 from ssd_tpu_torch.models.ssd_model import build_model
 from ssd_tpu_torch.ops.featurizer import FeaturizerConfig, logmel_batch
+from ssd_tpu_torch.ops.quant import maybe_prequantize
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, load_config_for
 from ssd_tpu_torch.utils.device import resolve_device
 
@@ -95,11 +100,11 @@ class InferenceEngine:
                 "data-parallel serving is not ported to ssd_tpu_torch yet "
                 "(ROADMAP.md queue 1 item 10)"
             )
-        if quantize not in (None, "none"):
-            raise NotImplementedError(
-                f"quantize={quantize!r} is not ported to ssd_tpu_torch yet "
-                "(ROADMAP.md queue 1 item 9)"
-            )
+        # inference-time quantization override (the server's --quantize):
+        # any float checkpoint serves int8 with the same weights
+        if quantize is not None:
+            cfg = copy.deepcopy(cfg)
+            cfg["model"]["encoder"]["quantize"] = quantize
         self.device = resolve_device(device)
         self.cfg = cfg
         self.vocab = vocab
@@ -145,7 +150,8 @@ class InferenceEngine:
         if input_dim is None:
             raise ValueError("encoder.input_dim required for serving")
         model = build_model(cfg, input_dim=int(input_dim), vocab_size=vocab.size)
-        model.load_state_dict(state_dict)
+        # int8_prequant: the eligible weights converted once, here
+        model.load_state_dict(maybe_prequantize(state_dict, model.encoder_cfg))
         self.model = model.to(self.device).eval()
         self.stats = LatencyStats()
         # one device, one stream: requests from the HTTP threads and the

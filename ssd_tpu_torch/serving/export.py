@@ -97,7 +97,10 @@ def export_checkpoint(
 ) -> Path:
     """Export one program per (batch, samples) bucket on ``device`` (the
     card unless the caller asks for the CPU; a missing card raises).
-    ``quantize`` other than None / ``"none"`` raises, as the engine does."""
+    ``quantize`` (``int8`` / ``int8_prequant``) exports the engine's
+    quantized forward: on the card each graph holds ``aten._int_mm`` and,
+    under ``int8_prequant``, the int8 weights and their scales as buffers;
+    the manifest records it."""
     from ssd_tpu_torch.serving.engine import InferenceEngine
 
     engine = InferenceEngine.from_checkpoint(
@@ -135,7 +138,7 @@ def export_checkpoint(
         "torch_version": torch.__version__,
         "checkpoint": str(ckpt_path),
         "decoder": "greedy",
-        "quantize": quantize or "none",
+        "quantize": engine.cfg["model"]["encoder"].get("quantize", "none"),
     }
     (out_dir / _MANIFEST).write_text(json.dumps(manifest, indent=2))
     logger.info("wrote %s (%d buckets)", out_dir / _MANIFEST, len(buckets))
@@ -223,7 +226,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--blank-bias", type=float, default=0.0)
     p.add_argument("--quantize", choices=["none", "int8", "int8_prequant"], default=None,
-                   help="Only 'none' is ported yet.")
+                   help="Quantize the exported forward (int8_prequant embeds int8 weights "
+                   "and per-channel scales; int8 quantizes them in the graph).")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu: the artifact's platform.")
     return p

@@ -344,7 +344,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Accepted for the JAX server's launch lines and unused: the CUDA "
                    "kernels are cached in ssd_tpu_torch/_build/ by source hash.")
     p.add_argument("--quantize", choices=["none", "int8", "int8_prequant"], default=None,
-                   help="Only 'none' is ported yet.")
+                   help="Inference-time dense quantization: int8 serves any float checkpoint "
+                   "with int8 FFN / pointwise products; int8_prequant converts those "
+                   "weights once at load. Default: the checkpoint config's encoder.quantize.")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu.")
     return p

@@ -369,8 +369,12 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise _not_ported("training in more than one process", "queue 1 item 10")
     enc = cfg["model"]["encoder"]
-    if enc.get("quantize", "none") != "none":
-        raise _not_ported(f"model.encoder.quantize={enc['quantize']!r}", "queue 1 item 9")
+    if enc.get("quantize") == "int8_prequant":
+        # int8 trains float: its forward quantizes only when not training
+        raise ValueError(
+            "model.encoder.quantize: int8_prequant is inference-only; "
+            "train with quantize: none (or int8, which trains float)"
+        )
     for key in ("emg_dtype", "teacher_dtype"):
         name = str(cfg["data"].get(key, "float32"))
         if name not in ("float32", "bfloat16"):

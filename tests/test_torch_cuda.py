@@ -569,3 +569,45 @@ def test_exported_bucket_runs_the_kernels(cuda, tmp_path):
         text = t.transcribe(emg)
         assert [k.launches - b for k, b in zip(kernels, before)] == [1, L, L]
     assert text == InferenceEngine.from_checkpoint(ckpt, device="cuda").transcribe(emg)
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 288, 1152), (17, 1152, 288), (5000, 768, 3072),
+                                   (625, 3072, 768)])
+def test_int8_matmul_on_the_card_is_exact(cuda, M, K, N):
+    """``torch._int_mm`` through the wrapper (fewer than 17 rows padded)
+    equal to the exact plain product; a launch counted."""
+    from ssd_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(M)
+    a = torch.from_numpy(rng.integers(-127, 128, size=(M, K), dtype=np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-127, 128, size=(N, K), dtype=np.int8)).to(cuda)
+    before = quant.INT_MM.launches
+    got = quant.int8_matmul(a, b)
+    assert quant.INT_MM.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (M, N)
+    assert torch.equal(got, quant.int8_matmul_plain(a, b))
+    assert torch.equal(got.cpu(), quant.int8_matmul(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_prequant"])
+def test_quantized_dense_on_the_card_matches_the_cpu(cuda, mode):
+    """One quantized Dense layer on identical inputs: the card's output equal
+    to the CPU's (the same int8 values and int32 sums; the rescale's fp32
+    products in the same order)."""
+    from ssd_tpu_torch.models import conformer
+    from ssd_tpu_torch.ops import quant
+
+    torch.manual_seed(0)
+    dense = conformer.Dense(288, 1152, quantize="int8")
+    x = torch.randn(3, 40, 288)
+    if mode == "int8_prequant":
+        q = quant.QuantDense(288, 1152)
+        sd = quant.prequantize_state_dict({"w1.weight": dense.weight.detach(),
+                                           "w1.bias": dense.bias.detach()})
+        q.load_state_dict({"weight": sd["w1.weight"], "scale": sd["w1.scale"],
+                           "bias": sd["w1.bias"]})
+        dense = q
+    with torch.no_grad():
+        want = dense(x)
+        got = dense.to(cuda)(x.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)

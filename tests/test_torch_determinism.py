@@ -46,16 +46,24 @@ def test_different_seed_different_losses(tmp_path):
     assert s1["best_val"] != s2["best_val"]
 
 
+def _trainer_said(records) -> list:
+    """The trainer's own records about ``logging.async_checkpoints``, picked
+    by logger and by the message's start: the test's ``tmp_path`` holds the
+    words too, and other loggers' lines name paths under it."""
+    return [r.getMessage() for r in records if r.name == ttrain.logger.name
+            and r.getMessage().startswith("logging.async_checkpoints")]
+
+
 def test_async_checkpoints_is_logged_not_honoured(tmp_path, caplog):
     with caplog.at_level(logging.INFO, logger=ttrain.logger.name):
         _train(tmp_path, "async", async_checkpoints=True)
-    said = [r.getMessage() for r in caplog.records if "async_checkpoints" in r.getMessage()]
+    said = _trainer_said(caplog.records)
     assert said and "synchronously" in said[0]
     assert (tmp_path / "async" / "run" / "last" / "model.pt").exists()
     caplog.clear()
     with caplog.at_level(logging.INFO, logger=ttrain.logger.name):
         _train(tmp_path, "sync")
-    assert not any("async_checkpoints" in r.getMessage() for r in caplog.records)
+    assert not _trainer_said(caplog.records)
 
 
 def test_cudnn_is_deterministic_only_while_training_on_the_card():

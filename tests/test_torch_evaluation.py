@@ -31,6 +31,7 @@ from ssd_tpu_torch.models.ssd_model import build_model
 from ssd_tpu_torch.training.checkpoint import save_checkpoint
 
 from .helpers import make_tiny_setup
+from .test_torch_logging import restored_logging
 
 torch.set_num_threads(1)
 
@@ -187,9 +188,12 @@ def test_evaluate_checkpoint_matches_jax(corpus, fused, raw):
 
 @pytest.fixture
 def quiet(monkeypatch):
-    """Both CLIs' logging set-up left alone (it replaces pytest's handlers)."""
+    """Both CLIs' logging set-up left alone (it replaces pytest's handlers),
+    and the root logger's level and handlers restored after the test."""
     monkeypatch.setattr("ssd_tpu.utils.config.setup_cli_logging", lambda: None)
     monkeypatch.setattr("ssd_tpu_torch.utils.config.setup_cli_logging", lambda: None)
+    with restored_logging():
+        yield
 
 
 def _keys(tree):
@@ -295,9 +299,7 @@ def test_cli_accepts_every_jax_eval_flag(monkeypatch, quiet):
 
 @pytest.mark.parametrize(
     "argv,error,match",
-    [(["--quantize", "int8"], NotImplementedError, "queue 1 item 9"),
-     (["--quantize", "int8_prequant"], NotImplementedError, "queue 1 item 9"),
-     (["--data-parallel"], NotImplementedError, "queue 1 item 10")],
+    [(["--data-parallel"], NotImplementedError, "queue 1 item 10")],
 )
 def test_cli_unported_options_raise(corpus, tmp_path, quiet, argv, error, match):
     _, root = corpus
@@ -308,12 +310,23 @@ def test_cli_unported_options_raise(corpus, tmp_path, quiet, argv, error, match)
 
 
 def test_quantized_checkpoint_raises(corpus, tmp_path, quiet):
+    """A checkpoint whose ``encoder.quantize`` is none of ``none``, ``int8``
+    and ``int8_prequant`` raises as the JAX model does; ``int8`` evaluates
+    (``tests/test_torch_quant.py`` holds it to the JAX CLI)."""
     _, root = corpus
     cfg = json.loads((root / "torch_run" / "config.json").read_text())
+    state = torch.load(root / "torch_run" / "last" / "model.pt")["state_dict"]
+    cfg["model"]["encoder"]["quantize"] = "int4"
+    save_checkpoint(tmp_path / "q4", state, cfg)
+    with pytest.raises(ValueError, match="quantize"):
+        teval.main(["--checkpoint", str(tmp_path / "q4" / "last"), "--device", "cpu",
+                    "--output", str(tmp_path / "out4")])
     cfg["model"]["encoder"]["quantize"] = "int8"
-    save_checkpoint(tmp_path / "q", torch.load(root / "torch_run" / "last" / "model.pt")["state_dict"], cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        teval.main(["--checkpoint", str(tmp_path / "q" / "last"), "--device", "cpu"])
+    save_checkpoint(tmp_path / "q", state, cfg)
+    teval.main(["--checkpoint", str(tmp_path / "q" / "last"), "--device", "cpu",
+                "--output", str(tmp_path / "out")])
+    used = json.loads((tmp_path / "out" / "config_used.json").read_text())
+    assert used["model"]["encoder"]["quantize"] == "int8"
 
 
 @pytest.mark.parametrize("device", ["cuda", "tpu"])

@@ -21,6 +21,7 @@ from ssd_tpu_torch.serving import engine as teng
 from ssd_tpu_torch.serving import export as texport
 from ssd_tpu_torch.training.checkpoint import save_checkpoint
 
+from .test_torch_logging import restored_logging
 from .test_torch_streaming import CHANNELS, CONFIGS, shared_weights, tiny_cfg
 
 torch.set_num_threads(1)
@@ -161,9 +162,10 @@ def test_cuda_export_and_load_raise_without_a_card(artifacts, checkpoints, tmp_p
 
 def test_cli(checkpoints, tmp_path, small_buckets):
     out = tmp_path / "artifact"
-    texport.main(["--checkpoint", str(checkpoints["fused"]), "--out", str(out),
-                  "--batch-sizes", "1", "--sample-lengths", str(BUCKET), "--device", "cpu",
-                  "--blank-bias", "0.5"])
+    with restored_logging():
+        texport.main(["--checkpoint", str(checkpoints["fused"]), "--out", str(out),
+                      "--batch-sizes", "1", "--sample-lengths", str(BUCKET), "--device", "cpu",
+                      "--blank-bias", "0.5"])
     manifest = json.loads((out / "manifest.json").read_text())
     assert manifest["blank_bias"] == 0.5 and len(manifest["buckets"]) == 1
     t = texport.ExportedTranscriber.load(out, device="cpu")
@@ -175,9 +177,22 @@ def test_cli(checkpoints, tmp_path, small_buckets):
 
 @pytest.mark.parametrize("mode", ["int8", "int8_prequant"])
 def test_quantize_raises(checkpoints, tmp_path, mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        texport.main(["--checkpoint", str(checkpoints["default"]), "--out", str(tmp_path / "q"),
-                      "--device", "cpu", "--quantize", mode])
+    """A quantized export records its mode, serves the quantized engine's
+    tokens, and — like every artifact — raises when loaded on another
+    platform than the one it was exported on."""
+    out = tmp_path / "q"
+    with restored_logging():
+        texport.main(["--checkpoint", str(checkpoints["default"]), "--out", str(out),
+                      "--batch-sizes", "4", "--sample-lengths", str(BUCKET), "--device", "cpu",
+                      "--quantize", mode])
+    assert json.loads((out / "manifest.json").read_text())["quantize"] == mode
+    t = texport.ExportedTranscriber.load(out, device="cpu")
+    reqs = _emg(4, 200)
+    port = teng.InferenceEngine.from_checkpoint(checkpoints["default"], device="cpu",
+                                                quantize=mode)
+    assert t.transcribe(reqs) == port.transcribe(reqs)
+    with pytest.raises(RuntimeError):
+        texport.ExportedTranscriber.load(out, device="cuda")
 
 
 _FRESH = r"""

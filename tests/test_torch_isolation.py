@@ -1,8 +1,10 @@
 """The port stands alone: importing every ``ssd_tpu_torch`` module and
 ``chip_smoke`` pulls in neither JAX (nor flax, optax, orbax) nor any module
 of ``ssd_tpu``, and none of the packages the card machine lacks (``yaml``,
-``pandas``, ``tensorboardX``): the port reads YAML itself and imports the
-other two lazily."""
+``pandas``, ``tensorboardX``, ``safetensors``, ``transformers``,
+``huggingface_hub``, ``ml_dtypes``): the port reads YAML and safetensors
+itself, imports pandas and tensorboardX lazily, and needs none of the
+rest."""
 
 import os
 import subprocess
@@ -22,7 +24,8 @@ for name in names:
 import chip_smoke
 bad = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pandas", "tensorboardX")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pandas", "tensorboardX",
+                           "safetensors", "transformers", "huggingface_hub", "ml_dtypes")
     or m == "ssd_tpu"
     or m.startswith("ssd_tpu.")
 )
@@ -38,5 +41,5 @@ def test_port_imports_no_jax_and_no_ssd_tpu():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 44  # the package, its 8 subpackages and 35 modules
+    assert int(n_modules) >= 51  # the package, its 8 subpackages and 42 modules
     assert bad == "[]", f"the port imported {bad}"

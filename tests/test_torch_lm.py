@@ -20,6 +20,7 @@ from ssd_tpu_torch.decoding import lm as tlm
 
 from .test_arpa_interchange import LMPLZ_STYLE_ARPA
 from .test_device_lm import CORPUS
+from .test_torch_logging import restored_logging
 
 SENTENCES = CORPUS + ["zebra cat", "the the the", "", "dogs", "she ran to a fox"]
 
@@ -128,7 +129,8 @@ def test_build_char_lm_cli_matches_jax(index, tmp_path, monkeypatch, extra, n_li
     monkeypatch.setattr(sys, "argv", ["build_char_lm", "--index", str(index), "--output",
                                       str(outs["jax"])] + extra)
     jbuild.main()
-    tbuild.main(["--index", str(index), "--output", str(outs["torch"])] + extra)
+    with restored_logging():
+        tbuild.main(["--index", str(index), "--output", str(outs["torch"])] + extra)
     corpus = outs["torch"].with_suffix(".txt").read_text()
     assert corpus == outs["jax"].with_suffix(".txt").read_text()
     assert len(corpus.splitlines()) == n_lines
@@ -141,5 +143,5 @@ def test_build_char_lm_cli_matches_jax(index, tmp_path, monkeypatch, extra, n_li
 
 def test_build_char_lm_cli_refuses_an_empty_selection(index, monkeypatch):
     monkeypatch.setattr("ssd_tpu_torch.utils.config.setup_cli_logging", lambda: None)
-    with pytest.raises(ValueError, match="No transcripts"):
+    with pytest.raises(ValueError, match="No transcripts"), restored_logging():
         tbuild.main(["--index", str(index), "--splits", "nonexistent"])

@@ -143,7 +143,6 @@ def test_fused_attention_and_pallas_depthwise_match_jax(override):
 @pytest.mark.parametrize(
     "override",
     [
-        {"quantize": "int8"},
         {"pipeline_microbatches": 2, "conv_norm": "layer"},
     ],
     ids=lambda o: next(iter(o)),

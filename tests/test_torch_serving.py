@@ -30,6 +30,8 @@ from ssd_tpu_torch.serving.server import encode_npy, serve
 from ssd_tpu_torch.serving.streaming import ChunkedStreamingTranscriber
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 
+from .test_torch_logging import restored_logging
+
 torch.set_num_threads(1)
 
 CHANNELS, N_MELS = 2, 8
@@ -195,7 +197,7 @@ def test_http_round_trip(weights, tmp_path):
 
 def test_engine_unported_options_raise(weights):
     _, _, sd = weights
-    for kw in ({"data_parallel": True}, {"quantize": "int8"}):
+    for kw in ({"data_parallel": True},):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             teng.InferenceEngine(_cfg(), sd, default_vocab(), device="cpu", **kw)
 
@@ -327,7 +329,7 @@ def test_server_accepts_every_jax_server_flag(weights, tmp_path, monkeypatch, ca
         "server", "--checkpoint", str(tmp_path / "run" / "last"), "--port", "0",
         "--device", "cpu", "--no-warmup", "--alpha", "0.7", "--beta", "0.2",
         "--compile-cache", str(tmp_path / "cache")])
-    with caplog.at_level(logging.INFO, logger=tserver.logger.name):
+    with caplog.at_level(logging.INFO, logger=tserver.logger.name), restored_logging():
         tserver.main()
     (server,) = started
     assert (server.batcher.engine.alpha, server.batcher.engine.beta) == (0.7, 0.2)

@@ -29,6 +29,8 @@ from ssd_tpu_torch.training import schedules as tsched
 from ssd_tpu_torch.training import train as ttrain
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, load_params_partial, save_checkpoint
 
+from .test_torch_logging import restored_logging
+
 torch.set_num_threads(1)
 
 IN_DIM, VOCAB, TEACHER_DIM, BLANK = 16, 48, 32, 1
@@ -319,7 +321,8 @@ def test_cli_trains_resumes_and_warm_starts_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "tensorboardX", None)  # the JSONL scalar writer
     cfg_path = _corpus(tmp_path)
     run = tmp_path / "run"
-    ttrain.main(["--config", str(cfg_path), "--run-dir", str(run), "--device", "cpu"])
+    with restored_logging():
+        ttrain.main(["--config", str(cfg_path), "--run-dir", str(run), "--device", "cpu"])
     for f in ("last/model.pt", "best/model.pt", "config.json", "tb/scalars.jsonl"):
         assert (run / f).exists(), f
     payload = load_checkpoint(run / "last")
@@ -337,9 +340,11 @@ def test_cli_trains_resumes_and_warm_starts_on_cpu(tmp_path, monkeypatch):
     assert load_checkpoint(run / "last")["optimizer"]["update_count"] == 4
 
     run2 = tmp_path / "warm"
-    ttrain.main(["--config", str(cfg_path), "--run-dir", str(run2), "--device", "cpu",
-                 "--init-checkpoint", str(run / "best"), "--dry-run", "--overfit-batches", "1",
-                 "--profile-dir", str(tmp_path / "trace"), "--compile-cache", str(tmp_path / "cc")])
+    with restored_logging():
+        ttrain.main(["--config", str(cfg_path), "--run-dir", str(run2), "--device", "cpu",
+                     "--init-checkpoint", str(run / "best"), "--dry-run", "--overfit-batches", "1",
+                     "--profile-dir", str(tmp_path / "trace"),
+                     "--compile-cache", str(tmp_path / "cc")])
     assert (run2 / "last/model.pt").exists()
     assert (tmp_path / "trace" / "trace.json").exists()
 
@@ -362,7 +367,7 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu(tmp_path):
     cfg = json.loads(_corpus(tmp_path).read_text())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.train_from_config(cfg, tmp_path / "run")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"), restored_logging():
         ttrain.main(["--config", str(tmp_path / "config.json"), "--run-dir", str(tmp_path / "r")])
 
 
@@ -373,7 +378,6 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu(tmp_path):
         ("parallel", {"fsdp": True}),
         ("parallel", {"sequence": True}),
         ("parallel", {"pipeline_microbatches": 2}),
-        ("encoder", {"quantize": "int8"}),
         ("env", {"WORLD_SIZE": "2"}),
     ],
     ids=lambda o: o if isinstance(o, str) else next(iter(o)),
