@@ -2265,10 +2265,13 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, SXM, 700 W
 # dx are bit-equal; dw and db are fp32 partials
 ATTN_BF16_REL = 2.0**-6
 DW_BF16_SUM_REL = 1e-4
-# PR 10's times of the bf16 attention kernels (PERF.md §6, H100 80GB
-# HBM3 at 700 W), printed beside this run's: (kernel, shape) → ms
+# The first bf16 attention and depthwise kernels' times (PERF.md §6, in
+# parentheses; H100 80GB HBM3 at 700 W), printed beside this run's:
+# (kernel, shape) → ms
 PR10_BF16_MS = {("attention_fwd_bf16", "train"): 0.1769, ("attention_bwd_bf16", "train"): 0.7202,
-                ("attention_fwd_bf16", "serve"): 0.1056, ("attention_bwd_bf16", "serve"): 0.4842}
+                ("attention_fwd_bf16", "serve"): 0.1056, ("attention_bwd_bf16", "serve"): 0.4842,
+                ("depthwise_fwd_bf16", "train"): 0.0488, ("depthwise_bwd_bf16", "train"): 0.0977,
+                ("depthwise_fwd_bf16", "serve"): 0.0215, ("depthwise_bwd_bf16", "serve"): 0.0418}
 # card vs CPU (and a stream window vs the offline forward), both bf16: a
 # rounding flipped anywhere in 12 blocks moves the encoder's output by a
 # fraction of a percent, so the logits — and the log-probs — by that
@@ -2342,8 +2345,9 @@ def rel_err(got, want) -> float:
 
 def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
     """Phase 15a: the four bf16 kernel instances against their plain bf16
-    versions at the large model's shapes, timed beside the plain versions,
-    SDPA's bf16 efficient backend and a bf16 ``F.conv1d``."""
+    versions at the large model's shapes (each backward run twice: the runs
+    bit-equal), timed beside the plain versions, SDPA's bf16 efficient
+    backend and a bf16 ``F.conv1d``."""
     t0 = time.perf_counter()
     entries = {}
     H, D, K = large_key("num_heads"), large_key("d_model"), large_key("depthwise_conv_kernel_size")
@@ -2360,6 +2364,7 @@ def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
         want_grads = attn.fused_attention_bwd_plain(q, k, v, mask, mult, g)
         y = dwc.DW_FWD_BF16(x, w, b)
         dx, part = dwc.DW_BWD_BF16(x, w, gx)
+        dx_again, part_again = dwc.DW_BWD_BF16(x, w, gx)
         want_y = dwc.depthwise_conv1d_plain(x, w, b)
         want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, gx)
         torch.cuda.synchronize()
@@ -2383,6 +2388,8 @@ def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
               f"version (max abs err {max_err([y.float()], [want_y.float()])})")
         check(torch.equal(dx, want_dx), f"bf16 depthwise dx at {label}: not bit-equal to the plain "
               f"version (max abs err {max_err([dx.float()], [want_dx.float()])})")
+        check(torch.equal(dx, dx_again) and torch.equal(part, part_again),
+              f"bf16 depthwise at {label}: two backward runs differ")
         sums = part.sum(dim=(0, 1))
         d_err = [rel_err(sums[:K], want_dwp.sum(dim=0)), rel_err(sums[K], gx.float().sum(dim=(0, 1)))]
         d_abs = max_err([sums[:K], sums[K]], [want_dwp.sum(dim=0), gx.float().sum(dim=(0, 1))])
@@ -2392,7 +2399,8 @@ def large_kernels(rng: np.random.Generator, card: str, steps: dict) -> dict:
               f"{' (dropout mult)' if drop else ''}: attention out/dq/dk/dv within "
               f"{', '.join(f'{e:.2e}' for e in a_err)} of their largest (gate {ATTN_BF16_REL:.3e}); "
               f"depthwise forward and dx bit-equal (torch.equal), dw/db within "
-              f"{d_err[0]:.2e}/{d_err[1]:.2e} (gate {DW_BF16_SUM_REL})")
+              f"{d_err[0]:.2e}/{d_err[1]:.2e} (gate {DW_BF16_SUM_REL}), two backward runs "
+              f"bit-equal ({part.shape[1]} strip(s) a batch row)")
 
         bias = sdpa_bias(mask, H, torch.bfloat16)
         additive = torch.where(mask[:, None, None, :] != 0, 0.0, -1e30).to(torch.bfloat16)

@@ -28,7 +28,11 @@ db — fp32 sums — are rounded to bf16, the dtype of the w and b the op was
 given, as the JAX VJP casts them (autograd then upcasts them to the fp32
 parameters). Each dtype has its own kernel instance and its own launch
 count (:data:`DW_FWD` / :data:`DW_FWD_BF16`, :data:`DW_BWD` /
-:data:`DW_BWD_BF16`); another dtype on the card raises.
+:data:`DW_BWD_BF16`); another dtype on the card raises. The fp32 kernels
+take one channel a thread; the bf16 ones two, loaded and stored as one
+bf16x2 word, each tap's product formed by a bf16x2 multiply (the exact
+product rounded once, which equals the plain version's fp32 product rounded
+to bf16 on every input).
 """
 
 from __future__ import annotations
@@ -38,7 +42,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ssd_tpu_torch.utils.cuda_build import CudaKernel, CudaLibrary, check_cuda_tensor, instance_for
+from ssd_tpu_torch.utils.cuda_build import (
+    DTYPE_SUFFIX,
+    CudaKernel,
+    CudaLibrary,
+    check_cuda_tensor,
+    instance_for,
+)
 
 
 def _check_odd(K: int) -> None:
@@ -107,6 +117,7 @@ _DW_LIBRARY = CudaLibrary(
         "ssd_dw_bwd_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "ssd_dw_bwd_bf16_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "ssd_dw_bwd_strips": ([_I, _I, _I, _I], _I),
+        "ssd_dw_bwd_bf16_strips": ([_I, _I, _I, _I], _I),
     },
     error_string="ssd_dw_error_string",
 )
@@ -137,8 +148,9 @@ class _DepthwiseKernel(CudaKernel):
 class DepthwiseFwdKernel(_DepthwiseKernel):
     """Forward stencil of ``csrc/depthwise_conv.cu`` (replaces ``_fwd_kernel``):
     x (B, T, C), w (K, C), b (C,) → y (B, T, C), all of the instance's
-    dtype; a thread computes 16 rows of one channel from a window of
-    16 + K − 1 rows it loads into registers."""
+    dtype; a thread computes 16 rows of one channel (fp32) or of two
+    neighbouring channels as bf16x2 words (bf16) from a window of 16 + K − 1
+    rows it loads into registers."""
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         B, T, C, K = self._shapes(x, w)
@@ -156,13 +168,15 @@ class DepthwiseBwdKernel(_DepthwiseKernel):
     of 64-row time tiles):
     rows 0 … K − 1 the dw partials ``Σ_t g[t] · x[t + j − pad]``, row K the
     db partial ``Σ_t g[t]``. The kernel picks the strip count for the
-    card's SM count."""
+    card's SM count; a CTA takes 32 channels (fp32) or 64, two a thread
+    (bf16)."""
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
         B, T, C, K = self._shapes(x, w)
         check_cuda_tensor("g", g, (B, T, C), self.dtype, x.device)
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        strips = self.library.load().ssd_dw_bwd_strips(B, T, C, sms)
+        strips_fn = getattr(self.library.load(), f"ssd_dw_bwd{DTYPE_SUFFIX[self.dtype]}_strips")
+        strips = strips_fn(B, T, C, sms)
         dx = torch.empty_like(x)
         part = torch.empty((B, strips, K + 1, C), dtype=torch.float32, device=x.device)
         self.launch(self.entry("ssd_dw_bwd"), x.device, x.data_ptr(), w.data_ptr(), g.data_ptr(),

@@ -313,16 +313,39 @@ def _bf16(t):
     return t.to(torch.bfloat16)
 
 
+def _bf16_taps_on_ties(gen, shape):
+    """Taps ±{1.25, 1.5, 1.75} · 2^e, e in [−3, 0]: 2 or 3 significant bits,
+    so a product with a random bf16 x often has a 9th significant bit that is
+    exactly one half — a rounding tie."""
+    mant = torch.tensor([1.25, 1.5, 1.75])[torch.randint(0, 3, shape, generator=gen)]
+    sign = torch.randint(0, 2, shape, generator=gen).float() * 2 - 1
+    return _bf16(sign * mant * 2.0 ** -torch.randint(0, 4, shape, generator=gen).float())
+
+
 @pytest.mark.parametrize(
-    "B,T,C,K",
-    [(32, 384, 768, 15), (8, 625, 768, 15), (5, 640, 288, 15), (2, 37, 40, 3),
-     (3, 100, 50, 31),  # C 50: not a multiple of 8, the bf16 ring's element copies
-     (2, 1, 768, 15), (3, 65, 768, 31)],
+    "B,T,C,K,data",
+    [(32, 384, 768, 15, "normal"), (8, 625, 768, 15, "normal"), (5, 640, 288, 15, "normal"),
+     (2, 37, 40, 3, "normal"),
+     (3, 100, 50, 31, "normal"),  # C 50: not a multiple of 8, the bf16 ring's element copies
+     (2, 1, 768, 15, "normal"), (3, 65, 768, 31, "normal"),
+     # odd C: element loads and stores, the last pair's high channel past C
+     (3, 130, 7, 15, "normal"), (2, 200, 289, 15, "normal"),
+     # C ≡ 2 mod 8: 4-byte words, element copies into the ring, a half-full last slab
+     (2, 200, 770, 15, "normal"), (2, 200, 770, 31, "normal"),
+     # products in and below bf16's subnormals, near its overflow, and on ties
+     (4, 300, 768, 15, "tiny"), (4, 300, 768, 15, "huge"), (4, 300, 768, 15, "ties")],
 )
-def test_depthwise_bf16_kernels_match_plain(cuda, B, T, C, K):
+def test_depthwise_bf16_kernels_match_plain(cuda, B, T, C, K, data):
     gen = torch.Generator().manual_seed(T + C)
-    x, g = (_bf16(torch.randn((B, T, C), generator=gen)).to(cuda) for _ in range(2))
-    w, b = (_bf16(torch.randn(s, generator=gen) / 4).to(cuda) for s in ((K, C), (C,)))
+    x, g = (torch.randn((B, T, C), generator=gen) for _ in range(2))
+    w, b = (torch.randn(s, generator=gen) / 4 for s in ((K, C), (C,)))
+    if data == "tiny":  # x, g ~ 2⁻¹²⁰: products x · w and g · w reach below 2⁻¹³³
+        x, g = x * 2.0**-120, g * 2.0**-120
+    elif data == "huge":  # x ~ 2¹²⁰ (g small enough that dw stays finite)
+        x, g = x * 2.0**120, g * 2.0**-20
+    elif data == "ties":
+        w = _bf16_taps_on_ties(gen, (K, C))
+    x, g, w, b = (_bf16(t).to(cuda) for t in (x, g, w, b))
     before = (dwc.DW_FWD_BF16.launches, dwc.DW_BWD_BF16.launches, dwc.DW_FWD.launches)
     y = dwc.DW_FWD_BF16(x, w, b)
     dx, part = dwc.DW_BWD_BF16(x, w, g)
@@ -346,17 +369,29 @@ def test_depthwise_bf16_kernels_match_plain(cuda, B, T, C, K):
         assert torch.equal(got, want)
 
 
-def test_depthwise_bf16_takes_misaligned_rows(cuda):
-    """x and g 2 bytes off a 16-byte boundary: element copies into the ring
-    and the forward's element loads."""
+@pytest.mark.parametrize("offset", [1, 2])
+def test_depthwise_bf16_takes_misaligned_rows(cuda, offset):
+    """x, g, w and b ``offset`` elements into their storage: 2 bytes off a
+    4-byte boundary (the forward's element loads and stores) or 4 bytes off a
+    16-byte one (its bf16x2 words); both take element copies into the
+    backward's ring. One launch a call, bit-equal."""
     gen = torch.Generator().manual_seed(2)
     B, T, C, K = 2, 130, 64, 15
-    x, g = (_bf16(torch.randn((B * T * C + 1,), generator=gen)).to(cuda)[1:].view(B, T, C)
-            for _ in range(2))
-    assert x.data_ptr() % 16 != 0
-    w, b = (_bf16(torch.randn(s, generator=gen) / 4).to(cuda) for s in ((K, C), (C,)))
-    assert torch.equal(dwc.DW_FWD_BF16(x, w, b), dwc.depthwise_conv1d_plain(x, w, b))
+
+    def view(shape, scale=1.0):
+        n = int(np.prod(shape))
+        flat = _bf16(torch.randn((n + offset,), generator=gen) * scale).to(cuda)
+        return flat[offset:].view(shape)
+
+    x, g = view((B, T, C)), view((B, T, C))
+    w, b = view((K, C), 0.25), view((C,), 0.25)
+    assert x.data_ptr() % 4 == 2 * offset % 4 and x.data_ptr() % 16 != 0
+    before = (dwc.DW_FWD_BF16.launches, dwc.DW_BWD_BF16.launches)
+    y = dwc.DW_FWD_BF16(x, w, b)
     dx, part = dwc.DW_BWD_BF16(x, w, g)
+    torch.cuda.synchronize()
+    assert (dwc.DW_FWD_BF16.launches, dwc.DW_BWD_BF16.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, dwc.depthwise_conv1d_plain(x, w, b))
     want_dx, want_dwp = dwc.depthwise_conv1d_bwd_plain(x, w, g)
     assert torch.equal(dx, want_dx)
     want_dw = want_dwp.sum(dim=0)
