@@ -173,7 +173,8 @@ failing loudly:
              the port's YAML reader (d_model 768, 12 blocks, 12 heads of hd
              64, ffn 3 072, 166 M parameters, ``compute_dtype: bfloat16``,
              ``remat``, ``scan_layers``, raw EMG, bf16 teacher features),
-             cut only in its ``parallel:`` section (one device), random
+             cut only in its ``parallel:`` section (one device: phase 18b
+             runs it as shipped when there are two cards), random
              seeded weights, depth not cut: (a) the bf16 instances of the
              attention and depthwise kernels against their plain bf16
              versions at B = 32, T′ 384 (dropout multiplier) and B = 8, T′
@@ -236,6 +237,31 @@ failing loudly:
              mode; then ``train_from_config`` (fused/pallas, 2 overfit
              batches: every fp32 kernel launches) and the eval CLI on the
              result. It prints its sub-steps' seconds.
+18. parallelism — ``ssd_tpu_torch/parallel/`` on ``torch.distributed``:
+             (a) the trainer CLI (``trainer.main``) under ``python -m
+             torch.distributed.run --nproc-per-node 1`` over NCCL, phase
+             7's corpus from raw EMG, tpu_fast_plus fused/pallas, 3 overfit
+             batches, with ``parallel: {}`` and ``{fsdp: true}``, each
+             against one process's ``train_from_config`` from the same
+             seed: losses and trained weights bit-equal (else the gap,
+             gated at the CPU tests' tolerances), NCCL seen inside the
+             step, every fp32 kernel launched by the rank (its counts enter
+             the kernels line), the step's device time beside the one
+             process's; with N ≥ 2 cards the same CLI again over an even
+             number of them, dropout 0, with tpu_scaled_large's block
+             (``model: 2, sequence, fsdp``) and with ``{fsdp: true}``, held
+             to the tolerances; (b) with two or more cards, the trainer's
+             ``make_train_step`` with tpu_scaled_large's ``parallel:``
+             block as shipped over 2 cards (and over 4 when there are 4)
+             at full width and 2 blocks, fused/pallas: an fp32 dropout-0
+             step against one card (loss and gradient tolerances of phase
+             8), then 2 bf16 steps that must stay finite — with one card it
+             prints ``{"phase": "18b", "skipped": ...}``; (c)
+             ``data_parallel`` serving of phase 11b's checkpoint: with one
+             card the warning and log-probs equal to the same engine's
+             without it, with more the rows split over the cards; text
+             equal either way. ``chip_smoke.py --parallel-only`` runs the
+             build and phase 18 alone, for a machine with several cards.
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
@@ -2288,7 +2314,8 @@ LARGE_PARITY_BLOCKS, LARGE_PARITY_B = 2, 2  # card vs CPU step: depth cut for th
 @functools.cache
 def large_config() -> dict:
     """``configs/tpu_scaled_large.yaml`` through ``load_config``, its
-    ``parallel:`` section cut to one device (ROADMAP Q1.10); callers copy it."""
+    ``parallel:`` section cut to one device (phase 15 runs on one card;
+    phase 18b runs the block as shipped over two); callers copy it."""
     cfg = load_config(LARGE_PATH)
     cfg["parallel"] = {"data": "auto", "model": 1}
     return cfg
@@ -3415,11 +3442,448 @@ def phase_prepare(root: Path, rng: np.random.Generator, card: str) -> dict:
     return totals
 
 
+
+# ---------------------------------------------------------------- phase 18
+
+MULTI_PATH = Path(__file__).resolve()
+
+
+class StepRecorder:
+    """Wraps ``trainer.make_train_step`` while a run trains: each train step
+    bracketed by CUDA events (its span on the device stream, host waits
+    included) and its losses kept, the second step profiled (its device
+    busy time: ``device_events``), and the process group's backend seen
+    from inside the step."""
+
+    def __init__(self) -> None:
+        self.events, self.losses, self.backend, self.busy_ms = [], [], None, None
+
+    @contextlib.contextmanager
+    def patch(self):
+        orig = trainer.make_train_step
+
+        def patched(*args, **kwargs):
+            step = orig(*args, **kwargs)
+
+            def recorded(state, batch, lambdas, generator):
+                if len(self.losses) == 1:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        state, losses = step(state, batch, lambdas, generator)
+                        torch.cuda.synchronize()
+                    self.busy_ms = sum(
+                        e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type.name == "CUDA"
+                        and not getattr(e, "is_user_annotation", False)) / 1e3
+                    self.losses.append(losses)
+                    return state, losses
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, losses = step(state, batch, lambdas, generator)
+                end.record()
+                self.events.append((start, end))
+                self.losses.append(losses)
+                if torch.distributed.is_initialized():
+                    self.backend = torch.distributed.get_backend()
+                return state, losses
+
+            return recorded
+
+        trainer.make_train_step = patched
+        try:
+            yield self
+        finally:
+            trainer.make_train_step = orig
+
+    def result(self) -> dict:
+        torch.cuda.synchronize()
+        return {"losses": [{k: float(v) for k, v in l.items()} for l in self.losses],
+                "step_ms": [s.elapsed_time(e) for s, e in self.events], "backend": self.backend,
+                "busy_ms": self.busy_ms}
+
+
+def rank_train(spec_path: str) -> int:
+    """One rank of phase 18a under ``torch.distributed.run``: the trainer
+    CLI (``trainer.main``) with the launch counts and the steps recorded."""
+    import os
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets them
+    torch.backends.cudnn.allow_tf32 = False
+    rec = StepRecorder()
+    reset_counts()
+    with rec.patch():
+        trainer.main(spec["argv"])
+    out = dict(rec.result(), counts=counts(), rank=int(os.environ["RANK"]),
+               world=int(os.environ["WORLD_SIZE"]))
+    Path(f"{spec['out']}.rank{out['rank']}.json").write_text(json.dumps(out))
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(nproc: int, *args: str, timeout: float = 600) -> float:
+    """``python -m torch.distributed.run --nproc-per-node N chip_smoke.py
+    ARGS``, waited for; its seconds."""
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+           "--master-addr", "127.0.0.1", "--master-port", str(free_port()), str(MULTI_PATH), *args]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode:
+        print(proc.stdout[-6000:])
+        print(proc.stderr[-6000:], file=sys.stderr)
+        raise SmokeFailure(f"torchrun {args[:1]} exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def weights_gap(got: dict, want: dict) -> tuple:
+    """(names not bit-equal, worst abs gap off the noise-only tensors and
+    the running means, worst on the running means)."""
+    bad = [n for n, w in want.items() if not torch.equal(got[n], w)]
+    noise = (".attn.mha.key.bias", ".conv.dw.bias")
+    gap = max([float((got[n] - want[n]).abs().max()) for n in bad
+               if not n.endswith(noise + (".bn.mean",))] or [0.0])
+    means = max([float((got[n] - want[n]).abs().max()) for n in bad if n.endswith(".bn.mean")]
+                or [0.0])
+    return bad, gap, means
+
+
+# a torchrun rank vs one process that are not bit-equal: held to the port's
+# CPU tests' tolerances after a few Adam steps (tests/test_torch_training.py:
+# weights 5e-5, running means 5e-4 — they average the noise-driven steps of
+# the depthwise bias) and to the card-vs-CPU loss tolerance
+MULTI_WEIGHT_ATOL, MULTI_MEAN_ATOL = 5e-5, 5e-4
+
+
+def multi_train(root: Path, card: str, nproc: int = 1) -> dict:
+    """Phase 18a: the trainer CLI under ``torch.distributed.run
+    --nproc-per-node N``, tpu_fast_plus fused/pallas from raw EMG, against
+    one process's ``train_from_config`` from the same seed. N = 1 (NCCL, a
+    1×1 mesh): ``parallel: {}`` and ``{fsdp: true}``, bit-equal expected.
+    N ≥ 2 cards: tpu_scaled_large's block (``model: 2, sequence, fsdp``)
+    and ``{fsdp: true}``, dropout and augmentation off (each rank draws
+    masks of its own), held to the tolerances."""
+    base = load_config(root / "config.json")
+    base["model"]["encoder"].update(FUSED)
+    base["data"]["train_from_raw"] = True
+    base["optim"]["max_epochs"] = 1
+    if nproc == 1:
+        blocks = (("dp", {}), ("fsdp", {"fsdp": True}))
+    else:
+        base["model"]["encoder"]["dropout"] = base["model"]["ctc_dropout"] = 0.0
+        base["augmentation"] = {}
+        blocks = (("tp_sp_fsdp", {"model": 2, "sequence": True, "fsdp": True}),
+                  ("fsdp", {"fsdp": True}))
+    t0 = time.perf_counter()
+    single = root / f"multi_single_{nproc}"
+    rec = StepRecorder()
+    with rec.patch():
+        summary = trainer.train_from_config(copy.deepcopy(base), single, overfit_batches=3,
+                                            device="cuda")
+    want = rec.result()
+    check_epoch(summary["history"][0], f"18a single for {nproc}")
+    w_want = load_checkpoint(single / "last")
+    single_s = time.perf_counter() - t0
+    total = dict.fromkeys(COUNTERS, 0)
+    for label, par in blocks:
+        t0 = time.perf_counter()
+        label = f"{label}_{nproc}"
+        cfg = copy.deepcopy(base)
+        cfg["parallel"] = par
+        cfg_path = root / f"multi_{label}.json"
+        cfg_path.write_text(json.dumps(cfg))
+        ranked = root / f"multi_{label}_torchrun"
+        spec = root / f"multi_{label}_spec.json"
+        out = root / f"multi_{label}"
+        spec.write_text(json.dumps({"out": str(out), "argv": [
+            "--config", str(cfg_path), "--run-dir", str(ranked), "--overfit-batches", "3"]}))
+        launch_s = torchrun(nproc, "--rank-train", str(spec))
+        ranks = [json.loads(Path(f"{out}.rank{r}.json").read_text()) for r in range(nproc)]
+        got = ranks[0]
+        check(all(r["backend"] == "nccl" and r["world"] == nproc for r in ranks),
+              f"18a {label}: the ranks trained over {[r['backend'] for r in ranks]} at world "
+              f"{got['world']}")
+        n = len(want["losses"])
+        check(n == 3 and all(len(r["losses"]) == 3 for r in ranks),
+              f"18a {label}: {len(got['losses'])} vs {n} steps")
+        check(all(r["losses"] == got["losses"] for r in ranks),
+              f"18a {label}: the ranks report different (global) losses")
+        counts_all = {k: sum(r["counts"][k] for r in ranks) for k in COUNTERS}
+        missing = [(r["rank"], k) for r in ranks
+                   for k in ("logmel", "ctc_alpha", "ctc_beta", "attention_fwd",
+                             "attention_bwd", "depthwise_fwd", "depthwise_bwd")
+                   if r["counts"][k] == 0]
+        check(not missing, f"18a {label}: the distributed trainer never launched {missing}")
+        for k in total:
+            total[k] += counts_all[k]
+        w_got = load_checkpoint(ranked / "last")
+        check(w_got["step"] == w_want["step"] and w_got["epoch"] == w_want["epoch"],
+              f"18a {label}: checkpoint step {w_got['step']} vs {w_want['step']}")
+        bad, gap, means = weights_gap(w_got["state_dict"], w_want["state_dict"])
+        loss_equal = got["losses"] == want["losses"]
+        if loss_equal and not bad:
+            verdict = "losses and all trained weights bit-equal (torch.equal)"
+        else:
+            for a, b in zip(got["losses"], want["losses"]):
+                for k in ("total", "ctc", "distill"):
+                    check(abs(a[k] - b[k]) <= TRAIN_LOSS_RTOL * abs(b[k]),
+                          f"18a {label}: {k} loss {a[k]} vs one process {b[k]}")
+            check(gap <= MULTI_WEIGHT_ATOL and means <= MULTI_MEAN_ATOL,
+                  f"18a {label}: weights off by {gap} (running means {means})")
+            worst_loss = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got["losses"],
+                             want["losses"]) for k in ("total", "ctc", "distill") if b[k])
+            verdict = (f"NOT bit-equal: losses equal {loss_equal} (worst rel {worst_loss:.3e}, "
+                       f"rtol {TRAIN_LOSS_RTOL}), {len(bad)} tensors differ, worst "
+                       f"{gap:.3e} (running means {means:.3e}; atol {MULTI_WEIGHT_ATOL} / "
+                       f"{MULTI_MEAN_ATOL})")
+        print(f"[multi] 18a {label}: torchrun --nproc-per-node {nproc} over {got['backend']}, "
+              f"parallel {par}, vs one process, {n} train steps of B=5 (3 overfit batches, "
+              f"raw EMG, fused/pallas{', dropout 0' if nproc > 1 else ''}): {verdict}; "
+              f"losses {[round(l['total'], 6) for l in got['losses']]}; step 2's device busy "
+              f"time (profiler) by rank {[round(r['busy_ms'], 3) for r in ranks]} ms vs "
+              f"{want['busy_ms']:.3f} ms one process (rank 0 x{got['busy_ms'] / want['busy_ms']:.3f}); "
+              f"step 3's span on the device stream (CUDA events, host waits included) by rank "
+              f"{[round(r['step_ms'][-1], 3) for r in ranks]} ms vs {want['step_ms'][-1]:.3f} ms; "
+              f"launches, all ranks {counts_all}; torchrun call {launch_s:.2f} s, total "
+              f"{time.perf_counter() - t0:.2f} s (the one-process run {single_s:.2f} s); "
+              f"card {card}")
+    return total
+
+
+MULTI_BLOCKS = 2  # phase 18b's depth: tpu_scaled_large's width, 2 blocks
+MULTI_B = 2
+
+
+def multi_large_cfg(dtype: str) -> dict:
+    cfg = {"model": copy.deepcopy(load_config(LARGE_PATH)["model"]),
+           "parallel": load_config(LARGE_PATH)["parallel"],
+           "optim": copy.deepcopy(load_config(LARGE_PATH)["optim"])}
+    cfg["model"]["encoder"].update(num_layers=MULTI_BLOCKS, dropout=0.0, compute_dtype=dtype,
+                                   **FUSED)
+    cfg["model"]["ctc_dropout"] = 0.0
+    cfg["optim"]["grad_accum"] = 1
+    return cfg
+
+
+def multi_large_step(cfg: dict, dev: torch.device, ctx=None, steps: int = 1) -> dict:
+    """``steps`` steps of the trainer's ``make_train_step`` on
+    :func:`multi_large_cfg` from ``SEED``'s weights and a seeded raw batch,
+    the model placed by ``shard_model`` when ``ctx`` is given (each data
+    rank its block of rows); the losses and the first step's synced,
+    unsharded gradients, taken as the optimizer steps."""
+    from ssd_tpu_torch.parallel.mesh import RowSplit
+    from ssd_tpu_torch.parallel.partition import gather_for, grad_norm_fn, shard_model
+
+    model = build_model(cfg, input_dim=large_key("input_dim"), vocab_size=48)
+    init_flax_style(model, torch.Generator().manual_seed(SEED))
+    model.to(dev)
+    shard_model(model, ctx)
+    names = [n for n, _ in model.named_parameters()]
+    opt, _ = build_optimizer(cfg, [p for _, p in model.named_parameters()], 10,
+                             grad_norm_fn(model))
+    out = {"losses": [], "grads": None}
+    step_opt = opt.step
+
+    def capture_then_step():
+        if out["grads"] is None:
+            out["grads"] = {n: gather_for(model, n, p.grad)
+                            for n, p in zip(names, model.parameters())}
+        return step_opt()
+
+    opt.step = capture_then_step
+    batch = large_batch(np.random.default_rng(SEED), MULTI_B)
+    if ctx is not None:
+        batch = RowSplit(local_data=ctx.data, local_index=ctx.data_rank).take(batch, MULTI_B)
+    batch = trainer.to_device(batch, dev)
+    featurize = feat.FeaturizerConfig.from_config(large_config())
+    train_step = trainer.make_train_step(BLANK, False, None, featurize, ctx)
+    state = trainer.TrainState(model=model, optimizer=opt)
+    for _ in range(steps):
+        state, losses = train_step(state, batch, LAMBDAS, None)
+        out["losses"].append({k: float(v) for k, v in losses.items()})
+    return out
+
+
+def rank_step(spec_path: str) -> int:
+    """One rank of phase 18b: tpu_scaled_large's ``parallel:`` block (model
+    2, sequence, fsdp) over the ranks, an fp32 step and two bf16 steps."""
+    import torch.distributed as dist
+
+    from ssd_tpu_torch.parallel.mesh import (
+        ParallelContext, maybe_initialize_distributed, mesh_from_config, rank_device)
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = spec.get("device", "cuda")
+    maybe_initialize_distributed(device=device)
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    try:
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+        for dtype, steps in (("float32", 1), ("bfloat16", 2)):
+            cfg = multi_large_cfg(dtype)
+            par = cfg["parallel"]
+            ctx = ParallelContext.from_mesh(mesh_from_config(cfg, device_type=dev.type),
+                                            sequence=par["sequence"], fsdp=par["fsdp"])
+            reset_counts()
+            res = multi_large_step(cfg, dev, ctx, steps)
+            if dtype != "float32":
+                res.pop("grads")  # only the fp32 step is held to one card
+            out[dtype] = dict(res, counts=counts(), mesh=[ctx.data, ctx.model])
+        if dist.get_rank() == 0:
+            torch.save(out, spec["out"])
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def multi_large(root: Path, card: str, nproc: int = 2) -> dict:
+    """Phase 18b: over ``nproc`` cards when there are as many, else a skip
+    line."""
+    n = torch.cuda.device_count()
+    if n < nproc:
+        print(json.dumps({"phase": "18b", "skipped": f"{n} CUDA device visible"}))
+        return dict.fromkeys(COUNTERS, 0)
+    t0 = time.perf_counter()
+    spec = root / "multi_large_spec.json"
+    spec.write_text(json.dumps({"out": str(root / "multi_large.pt")}))
+    torchrun(nproc, "--rank-step", str(spec))
+    got = torch.load(root / "multi_large.pt", weights_only=False)
+    check(got["backend"] == "nccl" and got["world"] == nproc,
+          f"18b: {got['backend']} {got['world']}")
+    want = multi_large_step(multi_large_cfg("float32"), torch.device("cuda"))
+    g32 = got["float32"]
+    for k in ("total", "ctc", "distill"):
+        a, b = g32["losses"][0][k], want["losses"][0][k]
+        check(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b), f"18b {k} loss 2 cards {a} vs one {b}")
+    worst = (0.0, "")
+    for name, w in want["grads"].items():
+        err = float((g32["grads"][name] - w).abs().max())
+        bound = max(TRAIN_GRAD_REL * float(w.abs().max()), TRAIN_GRAD_FLOOR)
+        check(err <= bound, f"18b grad {name}: {nproc} cards vs one {err} > {bound}")
+        if bound > TRAIN_GRAD_FLOOR:  # the tensors held to the relative limit
+            worst = max(worst, (err / float(w.abs().max()), name))
+    bf = got["bfloat16"]["losses"]
+    check(all(np.isfinite(l[k]) for l in bf for k in l), f"18b bf16 losses {bf}")
+    for dtype, names in (("float32", ("attention_fwd", "depthwise_fwd")),
+                         ("bfloat16", ("attention_fwd_bf16", "depthwise_fwd_bf16"))):
+        check(all(got[dtype]["counts"][k] > 0 for k in names),
+              f"18b {dtype}: rank 0 launched {got[dtype]['counts']}")
+    print(f"[multi] 18b tpu_scaled_large parallel {multi_large_cfg('float32')['parallel']} over "
+          f"{nproc} cards (mesh {g32['mesh']}), {MULTI_BLOCKS} blocks, fused/pallas, B={MULTI_B}: fp32 "
+          f"losses {g32['losses'][0]} vs one card {want['losses'][0]} (rtol {TRAIN_LOSS_RTOL}); "
+          f"worst gradient {worst[0]:.3e} of its largest ({worst[1]}; limit {TRAIN_GRAD_REL}); "
+          f"bf16 losses {bf}; rank 0 launches fp32 {got['float32']['counts']}, bf16 "
+          f"{got['bfloat16']['counts']}; {time.perf_counter() - t0:.2f} s; card {card}")
+    return {k: got["float32"]["counts"][k] + got["bfloat16"]["counts"][k] for k in COUNTERS}
+
+
+def multi_serving(ckpt: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 18c: ``data_parallel`` serving. One card: the warning, and the
+    reply of the same engine without it; more: rows split across the cards
+    and the same text."""
+    import logging
+
+    class Seen(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    seen = Seen()
+    logging.getLogger("ssd_tpu_torch.parallel.replicas").addHandler(seen)
+    try:
+        reset_counts()
+        dp = InferenceEngine.from_checkpoint(ckpt, device="cuda", data_parallel=True)
+    finally:
+        logging.getLogger("ssd_tpu_torch.parallel.replicas").removeHandler(seen)
+    plain = InferenceEngine.from_checkpoint(ckpt, device="cuda")
+    reqs = requests(rng, 5)
+    n = torch.cuda.device_count()
+    lp_dp, ol_dp = dp.forward(reqs)
+    c = counts()
+    hyps_dp = dp.transcribe(reqs)
+    lp, ol = plain.forward(reqs)
+    hyps = plain.transcribe(reqs)
+    check(hyps_dp == hyps, f"18c: data_parallel text {hyps_dp} vs {hyps}")
+    check(torch.equal(ol_dp, ol), "18c: output lengths differ")
+    if n < 2:
+        check(dp.replicas is None and any("only 1 device is visible" in m for m in seen.messages),
+              f"18c: one card but replicas {dp.replicas} and warnings {seen.messages}")
+        check(torch.equal(lp_dp, lp), "18c: one card, yet the log-probs differ")
+        how = "the warning logged, log-probs torch.equal to the engine without it"
+    else:
+        check(len(dp.replicas.models) == n, f"18c: {len(dp.replicas.models)} replicas on {n} cards")
+        check(close(lp_dp, lp, **LOGPROB_TOL), "18c: log-probs across cards differ")
+        how = f"rows split over {n} cards, log-probs within {LOGPROB_TOL}"
+    print(f"[multi] 18c data_parallel serving on {n} card(s): {how}; text equal "
+          f"{[h[:20] for h in hyps]}; launches of the forward {c}; card {card}")
+    return c
+
+
+def phase_multi(root: Path, fused_ckpt: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 18: data, tensor and sequence parallelism with FSDP on
+    ``torch.distributed``: the trainer CLI at one rank and, with 2 or more
+    cards, on an even number of them; tpu_scaled_large's step on 2 cards
+    and on 4 when there are as many; ``data_parallel`` serving."""
+    root.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    n = torch.cuda.device_count()
+    parts = [multi_train(root, card)]
+    if n >= 2:
+        parts.append(multi_train(root, card, nproc=n - n % 2))
+    parts.append(multi_large(root, card))
+    if n >= 4:
+        parts.append(multi_large(root, card, nproc=4))
+    parts.append(multi_serving(fused_ckpt, rng, card))
+    return {k: sum(part[k] for part in parts) for k in COUNTERS}
+
+
+def parallel_only() -> int:
+    """``chip_smoke.py --parallel-only``: the kernels' build and phase 18
+    alone (its corpus and checkpoint made as phases 7 and 11 make them), for
+    a machine with several cards."""
+    card = phase_build()
+    rng = np.random.default_rng(SEED)
+    root = Path(tempfile.mkdtemp(prefix="ssd_chip_smoke_parallel_"))
+    try:
+        t0 = time.perf_counter()
+        train_dir = root / "train"
+        train_dir.mkdir()
+        make_corpus(train_dir, rng)
+        ckpt = build_run_dir(root / "fused", **FUSED)
+        multi = phase_multi(train_dir, ckpt, rng, card)
+        print(f"[time] parallelism {time.perf_counter() - t0:.2f} s; launches {multi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] in ("--rank-train", "--rank-step"):
+        # a rank of phase 18, started by torch.distributed.run
+        return (rank_train if sys.argv[1] == "--rank-train" else rank_step)(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--parallel-only"]:
+        return parallel_only()
     rng = np.random.default_rng(SEED)
     seconds = {}
 
@@ -3458,20 +3922,24 @@ def main() -> int:
         large = timed("tpu_scaled_large bf16", phase_large, run_dir / "large", rng, card)
         quantized = timed("quantized serving", phase_quant, run_dir / "quant", rng, card)
         prepared = timed("data preparation", phase_prepare, run_dir / "prep", rng, card)
+        multi = timed("parallelism", phase_multi, train_dir, run_dir / "fused" / "last", rng,
+                      card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     entry["launches"] += (evaluated["logmel"] + lm_served["logmel"] + streamed["logmel"]
-                          + quantized["logmel"] + prepared["logmel"])
+                          + quantized["logmel"] + prepared["logmel"] + multi["logmel"])
     kernels = [entry]
     for name in ("alpha", "beta"):
         e = ctc_out["entries"][name]
-        e["launches"] = train_counts[f"ctc_{name}"] + prepared[f"ctc_{name}"]
+        e["launches"] = (train_counts[f"ctc_{name}"] + prepared[f"ctc_{name}"]
+                         + multi[f"ctc_{name}"])
         kernels.append(e)
     for name in ("attention_fwd", "attention_bwd", "depthwise_fwd", "depthwise_bwd"):
         e = new_out["entries"][name]
-        # phase 11's two counted runs, phase 12's, 13's, 14's, 16's and 17's
+        # phase 11's two counted runs, phase 12's, 13's, 14's, 16's, 17's and
+        # 18's (every rank of its distributed trainer)
         e["launches"] = (served[name] + trained[name] + evaluated[name] + lm_served[name]
-                         + streamed[name] + quantized[name] + prepared[name])
+                         + streamed[name] + quantized[name] + prepared[name] + multi[name])
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
     check(quantized["int_mm"] > 0, "torch._int_mm was never launched on the quantized path")

@@ -18,7 +18,15 @@
 Given the same index and seed, the batches equal the JAX loader's bit for
 bit (``tests/test_torch_data.py``). The loader runs in-process, fed to the
 step by the :func:`prefetch` thread; the JAX package's worker-process pool
-and its multi-host sharding are not ported (``ROADMAP.md``).
+is not ported (``ROADMAP.md`` Q1.15).
+
+``num_shards`` / ``shard_index`` are the JAX loader's multi-host contract:
+global batches of ``batch_size × num_shards`` rows cut from one seeded
+permutation, each shard its contiguous ``batch_size`` rows padded to the
+global batch's bucket shapes and to exactly ``batch_size`` rows, an empty
+shard an all-padding batch — every shard steps the same number of times
+with the same shapes. The trainer shards over nodes (``batch_size`` is per
+host, as in the JAX package) and splits a node's batch over its ranks.
 """
 
 from __future__ import annotations
@@ -123,6 +131,9 @@ class EMGFeatureDataset:
         self.raw = raw
         self.channel_dropout_cfg = channel_dropout_cfg or ChannelDropoutConfig()
         self._lengths_cache: Dict[int, int] = {}
+        self._teacher_lengths_cache: Dict[int, int] = {}
+        self._token_lengths_cache: Dict[int, int] = {}
+        self._teacher_dim: Optional[int] = None
 
     def __len__(self) -> int:
         return len(self._rows)
@@ -144,6 +155,32 @@ class EMGFeatureDataset:
                 raise FileNotFoundError(path)
             self._lengths_cache[idx] = int(np.load(path, mmap_mode="r").shape[0])
         return self._lengths_cache[idx]
+
+    def teacher_length(self, idx: int) -> int:
+        """Teacher frame count of item ``idx`` (0 when absent; header only)."""
+        if idx not in self._teacher_lengths_cache:
+            path = self._teacher_path(self._rows[idx]["utterance_id"])
+            if not path.exists():
+                self._teacher_lengths_cache[idx] = 0
+            else:
+                arr = np.load(path, mmap_mode="r")
+                self._teacher_lengths_cache[idx] = int(arr.shape[0])
+                self._teacher_dim = int(arr.shape[1])
+        return self._teacher_lengths_cache[idx]
+
+    def teacher_dim(self) -> Optional[int]:
+        """Teacher feature dim, from the first existing teacher file."""
+        if self._teacher_dim is None:
+            for i in range(len(self._rows)):
+                if self.teacher_length(i) > 0:
+                    break
+        return self._teacher_dim
+
+    def token_length(self, idx: int) -> int:
+        if idx not in self._token_lengths_cache:
+            transcript = self._rows[idx]["transcript_norm"]
+            self._token_lengths_cache[idx] = len(self.vocab.encode(transcript))
+        return self._token_lengths_cache[idx]
 
     def get(self, idx: int, rng: Optional[np.random.Generator] = None) -> Dict:
         row = self._rows[idx]
@@ -191,15 +228,25 @@ def collate(
     time_bucket: int = TIME_BUCKET,
     teacher_dtype: str = "float32",
     emg_dtype: str = "float32",
+    pad_time_to: Optional[int] = None,
+    pad_tokens_to: Optional[int] = None,
+    pad_teacher_to: Optional[int] = None,
+    pad_rows_to: Optional[int] = None,
+    teacher_dim: Optional[int] = None,
 ) -> Batch:
     """Right-pad items to bucket-rounded static shapes; EMG and teacher in
-    their transfer dtypes (``"bfloat16"``: uint16 bit patterns)."""
+    their transfer dtypes (``"bfloat16"``: uint16 bit patterns).
+
+    The ``pad_*_to`` targets force larger paddings (a shard takes its
+    global batch's shapes); ``pad_rows_to`` appends all-zero rows of length
+    0; ``pad_teacher_to`` + ``teacher_dim`` make the teacher arrays exist
+    when no item carries teacher features."""
     emg_lengths = np.asarray([it["emg"].shape[0] for it in items], np.int32)
     token_lengths = np.asarray([len(it["tokens"]) for it in items], np.int32)
-    T = _round_up(int(emg_lengths.max()), time_bucket)
-    S = _round_up(int(token_lengths.max()), TOKEN_BUCKET)
+    T = max(_round_up(int(emg_lengths.max()), time_bucket), pad_time_to or 0)
+    S = max(_round_up(int(token_lengths.max()), TOKEN_BUCKET), pad_tokens_to or 0)
     F = items[0]["emg"].shape[1]
-    B = len(items)
+    B = max(len(items), pad_rows_to or 0)
 
     emg = np.zeros((B, T, F), np.float32)
     tokens = np.full((B, S), vocab.pad_id, np.int32)
@@ -209,19 +256,24 @@ def collate(
             x = spec_augment_np(x, spec_augment_cfg, rng)
         emg[i, : x.shape[0]] = x
         tokens[i, : len(it["tokens"])] = it["tokens"]
+    if B > len(items):
+        emg_lengths = np.pad(emg_lengths, (0, B - len(items)))
+        token_lengths = np.pad(token_lengths, (0, B - len(items)))
 
     teacher = None
     teacher_lengths = None
-    if any(it["teacher"] is not None for it in items):
-        teacher_lengths = np.asarray(
+    if any(it["teacher"] is not None for it in items) or pad_teacher_to:
+        t_lens = np.asarray(
             [0 if it["teacher"] is None else it["teacher"].shape[0] for it in items], np.int32
         )
-        Tt = _round_up(int(teacher_lengths.max()), TEACHER_BUCKET)
-        D = next(it["teacher"].shape[1] for it in items if it["teacher"] is not None)
+        Tt = max(_round_up(int(t_lens.max()), TEACHER_BUCKET), pad_teacher_to or 0)
+        D = next((it["teacher"].shape[1] for it in items if it["teacher"] is not None),
+                 teacher_dim)
         teacher = np.zeros((B, Tt, D), np.float32)
         for i, it in enumerate(items):
             if it["teacher"] is not None:
                 teacher[i, : it["teacher"].shape[0]] = it["teacher"]
+        teacher_lengths = np.pad(t_lens, (0, B - len(t_lens)))
 
     return Batch(
         utterance_ids=[it["utterance_id"] for it in items],
@@ -255,8 +307,12 @@ class DataLoader:
         time_bucket: int = TIME_BUCKET,
         teacher_dtype: str = "float32",
         emg_dtype: str = "float32",
+        num_shards: int = 1,
+        shard_index: int = 0,
     ) -> None:
         self.dataset = dataset
+        self.num_shards = int(num_shards)
+        self.shard_index = int(shard_index)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -273,16 +329,18 @@ class DataLoader:
         self._indices = indices
 
     def __len__(self) -> int:
-        return (len(self._indices) + self.batch_size - 1) // self.batch_size
+        bg = self.batch_size * self.num_shards
+        return (len(self._indices) + bg - 1) // bg
 
     def _epoch_batches(self, rng: np.random.Generator) -> List[List[int]]:
+        """Global batch index lists, the same in every shard (same seed)."""
         indices = list(self._indices)
         if self.shuffle:
             rng.shuffle(indices)
             # stable sort by bucketed length keeps shuffle randomness within
             # equal-bucket groups while minimizing padding waste
             indices.sort(key=lambda i: _round_up(self.dataset.feature_length(i), self.time_bucket))
-        bs = self.batch_size
+        bs = self.batch_size * self.num_shards
         batches = [indices[i : i + bs] for i in range(0, len(indices), bs)]
         if self.shuffle:
             rng.shuffle(batches)
@@ -294,18 +352,55 @@ class DataLoader:
         does not depend on how many draws earlier batches consumed."""
         return np.random.default_rng((self.seed, epoch, batch_idx))
 
-    def _build_batch(self, epoch: int, batch_idx: int, batch_indices: List[int]) -> Batch:
-        rng = self._batch_rng(epoch, batch_idx) if self.shuffle else None
-        items = [self.dataset.get(i, rng) for i in batch_indices]
-        return collate(
-            items,
-            self.dataset.vocab,
-            spec_augment_cfg=self.spec_augment_cfg if self.shuffle else None,
-            rng=rng,
-            time_bucket=self.time_bucket,
-            teacher_dtype=self.teacher_dtype,
-            emg_dtype=self.emg_dtype,
+    def _shard_pad_kwargs(self, global_batch: List[int]) -> Dict:
+        """Bucket shapes of the global batch, which every shard pads to."""
+        ds = self.dataset
+        kwargs: Dict = dict(
+            pad_time_to=_round_up(max(ds.feature_length(i) for i in global_batch),
+                                  self.time_bucket),
+            pad_tokens_to=_round_up(max(ds.token_length(i) for i in global_batch), TOKEN_BUCKET),
+            pad_rows_to=self.batch_size,
         )
+        if ds.include_teacher:
+            tt_max = max(ds.teacher_length(i) for i in global_batch)
+            if tt_max > 0:
+                kwargs["pad_teacher_to"] = _round_up(tt_max, TEACHER_BUCKET)
+                kwargs["teacher_dim"] = ds.teacher_dim()
+        return kwargs
+
+    def _build_batch(self, epoch: int, batch_idx: int, global_batch: List[int]) -> Batch:
+        """This shard's padded batch of one global batch."""
+        rng = self._batch_rng(epoch, batch_idx) if self.shuffle else None
+        pad_kwargs: Dict = {}
+        batch_indices = global_batch
+        if self.num_shards > 1:
+            lo = self.shard_index * self.batch_size
+            batch_indices = global_batch[lo : lo + self.batch_size]
+            pad_kwargs = self._shard_pad_kwargs(global_batch)
+        common = dict(time_bucket=self.time_bucket, teacher_dtype=self.teacher_dtype,
+                      emg_dtype=self.emg_dtype, **pad_kwargs)
+        if batch_indices:
+            items = [self.dataset.get(i, rng) for i in batch_indices]
+            return collate(
+                items,
+                self.dataset.vocab,
+                spec_augment_cfg=self.spec_augment_cfg if self.shuffle else None,
+                rng=rng,
+                **common,
+            )
+        # a small last global batch can leave this shard empty: it still
+        # steps, with a batch of padding
+        batch = collate([self.dataset.get(global_batch[0])], self.dataset.vocab, **common)
+        batch.emg[:] = 0
+        batch.emg_lengths[:] = 0
+        batch.tokens[:] = self.dataset.vocab.pad_id
+        batch.token_lengths[:] = 0
+        if batch.teacher is not None:
+            batch.teacher[:] = 0
+            batch.teacher_lengths[:] = 0
+        batch.utterance_ids = []
+        batch.transcripts = []
+        return batch
 
     def __iter__(self) -> Iterator[Batch]:
         epoch = self.epoch
@@ -375,6 +470,8 @@ def make_dataloader(
     raw_hop_length: int = 10,
     teacher_dtype: str = "float32",
     emg_dtype: str = "float32",
+    num_shards: int = 1,
+    shard_index: int = 0,
 ) -> DataLoader:
     """Factory with the JAX package's surface (``dataset.py:make_dataloader``).
 
@@ -414,4 +511,6 @@ def make_dataloader(
         time_bucket=TIME_BUCKET * raw_hop_length if raw else TIME_BUCKET,
         teacher_dtype=teacher_dtype,
         emg_dtype=emg_dtype,
+        num_shards=num_shards,
+        shard_index=shard_index,
     )

@@ -24,8 +24,10 @@ depthwise CUDA kernels. Decoding runs on the same device
 ``--lm-backend host``, in the host search; a path that does not exist is
 logged and the beam decodes without it. ``--quantize int8|int8_prequant``
 (or a checkpoint's ``encoder.quantize``) evaluates the int8 forward
-(``ops/quant.py``). A missing card raises. Not ported yet, and raising
-with its ROADMAP.md item: ``--data-parallel`` (queue 1 item 10).
+(``ops/quant.py``). A missing card raises. ``--data-parallel`` replicates
+the model on every visible card and splits each batch's rows across them
+(``parallel/replicas.py``; pad rows a valid length, their results cut off);
+with one card it warns and runs on it, as the JAX CLI does.
 ``--compile-cache`` has no PyTorch counterpart and is logged as unused.
 """
 
@@ -49,8 +51,8 @@ from ssd_tpu_torch.evaluation.metrics import compute_error_breakdown, compute_me
 from ssd_tpu_torch.models.ssd_model import build_model
 from ssd_tpu_torch.ops.featurizer import FeaturizerConfig, logmel_batch
 from ssd_tpu_torch.ops.quant import maybe_prequantize
+from ssd_tpu_torch.parallel.replicas import data_parallel_replicas
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, load_config_for
-from ssd_tpu_torch.training.train import _not_ported
 from ssd_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -84,6 +86,7 @@ def evaluate_checkpoint(
     features_root: Optional[Path] = None,
     data_parallel: bool = False,
     device: str | torch.device = "cuda",
+    devices: Optional[List[str | torch.device]] = None,
 ) -> Dict[str, Any]:
     """Decode the eval set; returns ``{"metrics", "records"}``, the metrics
     with ``decode_latency_sec`` (p50 / p90 / mean seconds an utterance of
@@ -92,9 +95,10 @@ def evaluate_checkpoint(
     Checkpoints trained with ``data.train_from_raw`` evaluate from the raw
     signals: the loader runs in raw mode and the forward featurizes on the
     device with the config's ``features.emg`` block, as the trainer did.
+
+    ``data_parallel`` splits each batch's rows over a replica a device
+    (``devices``, default every visible card).
     """
-    if data_parallel:
-        raise _not_ported("data-parallel evaluation", "queue 1 item 10")
     dev = resolve_device(device)
     data_cfg = cfg["data"]
     index_path = index_path or Path(data_cfg["index"])
@@ -133,7 +137,13 @@ def evaluate_checkpoint(
     # int8_prequant: the eligible weights converted once, at load
     model.load_state_dict(maybe_prequantize(load_checkpoint(ckpt_path)["state_dict"],
                                             model.encoder_cfg))
-    forward = make_forward(model.to(dev).eval(), featurize_cfg=feat_cfg)
+    model = model.to(dev).eval()
+    forward = make_forward(model, featurize_cfg=feat_cfg)
+    replicas = (data_parallel_replicas(model, dev, devices, "--data-parallel")
+                if data_parallel else None)
+    # pad rows of the split: one STFT window of zeros in raw mode, a few
+    # zero frames otherwise (an all-masked attention row is NaN)
+    pad_length = feat_cfg.n_fft if feat_cfg is not None else 8
 
     refs: List[str] = []
     hyps: List[str] = []
@@ -143,7 +153,12 @@ def evaluate_checkpoint(
         for batch in batches:
             emg = torch.from_numpy(np.ascontiguousarray(batch.emg)).to(dev)
             lengths = torch.from_numpy(batch.emg_lengths).to(dev)
-            log_probs, out_lengths = forward(emg, lengths)
+            if replicas is not None:
+                log_probs, out_lengths = replicas.split(
+                    lambda m, e, n: make_forward(m, featurize_cfg=feat_cfg)(e, n),
+                    emg, lengths, pad_length)
+            else:
+                log_probs, out_lengths = forward(emg, lengths)
             if dev.type == "cuda":
                 # the forward runs asynchronously: the decode clock starts after it
                 torch.cuda.synchronize(dev)
@@ -213,7 +228,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="LM-fused decoding backend: the search on the log-probs' device (default) "
         "or the host prefix search, the oracle.",
     )
-    p.add_argument("--data-parallel", action="store_true", help="Not ported yet.")
+    p.add_argument(
+        "--data-parallel", action="store_true",
+        help="Replicate the model on every visible card and split each batch's rows "
+        "across them (one card: a warning, then one device).",
+    )
     return p
 
 
@@ -223,8 +242,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     setup_cli_logging()
     args = build_parser().parse_args(argv)
     device = resolve_device("cuda" if args.device == "tpu" else args.device)
-    if args.data_parallel:
-        raise _not_ported("--data-parallel", "queue 1 item 10")
     if args.compile_cache is not None:
         logger.info("--compile-cache %s is unused: the CUDA kernels are cached in "
                     "ssd_tpu_torch/_build/ by source hash", args.compile_cache)
@@ -293,6 +310,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         batch_size=args.batch_size,
         index_path=args.index,
         features_root=args.features_root,
+        data_parallel=args.data_parallel,
         device=device,
     )
     metrics, records = out["metrics"], out["records"]

@@ -75,7 +75,8 @@ from torch.utils.checkpoint import (
 
 from ssd_tpu_torch.ops.attention import fused_attention
 from ssd_tpu_torch.ops.depthwise_conv import depthwise_conv1d
-from ssd_tpu_torch.ops.dropout import dropout, keep_multiplier
+from ssd_tpu_torch.ops.dropout import dropout, keep_multiplier, stream
+from ssd_tpu_torch.parallel import collectives as col
 from ssd_tpu_torch.ops.quant import QuantDense, int8_linear
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -87,8 +88,11 @@ logger = logging.getLogger(__name__)
 class EncoderConfig:
     """Mirrors ``ssd_tpu.models.conformer.EncoderConfig`` key for key.
 
-    ``build_model`` rejects values that select a path outside the port and
-    ignores ``sequence_parallel`` (a mesh annotation).
+    ``build_model`` rejects values that select a path outside the port.
+    ``sequence_parallel`` is recorded here; the trainer's ``parallel:
+    {sequence: true}`` turns it on over a ``model`` axis above 1
+    (``parallel/partition.py:shard_model``), and it changes nothing on one
+    device.
     """
 
     input_dim: int
@@ -157,11 +161,14 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
         self.quantize = quantize
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, bias: bool = True) -> torch.Tensor:
+        """``bias=False``: the product alone (a row-parallel layer adds its
+        bias after the sum over ``model``)."""
         dt = self.compute_dtype
         if self.quantize == "int8" and not train:
-            return int8_linear(x.to(dt), self.weight.to(dt)).to(dt) + self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+            y = int8_linear(x.to(dt), self.weight.to(dt)).to(dt)
+            return y + self.bias.to(dt) if bias else y
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt) if bias else None)
 
 
 def _dense(in_features: int, out_features: int, dtype: torch.dtype, quantize: str) -> nn.Module:
@@ -222,8 +229,49 @@ class Conv1dSubsampler(nn.Module):
         return x.transpose(1, 2)
 
 
-def _drop(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tensor:
-    return dropout(x, rate, generator) if train else x
+def _drop(x: torch.Tensor, rate: float, train: bool, generator,
+          region: str = "replicated") -> torch.Tensor:
+    return dropout(x, rate, stream(generator, region)) if train else x
+
+
+# --------------------------------------------------------------------------
+# Tensor / sequence parallelism (``parallel/partition.py:shard_model`` sets
+# ``par``, the ParallelContext, on the modules that take part)
+# --------------------------------------------------------------------------
+
+
+def _stream_region(par) -> str:
+    """Dropout region of the residual stream: sharded when T is."""
+    return "sharded" if par is not None and par.sequence else "replicated"
+
+
+def _enter_tp(x: torch.Tensor, par) -> torch.Tensor:
+    """Into a column-parallel layer: the full-T input (gathered when T is
+    sharded), its gradient summed over ``model``; ``x`` in one process."""
+    if par is None:
+        return x
+    return col.gather_seq(x, par.model_group) if par.sequence else col.copy_to(x, par.model_group)
+
+
+def _exit_tp(partial: torch.Tensor, bias: torch.Tensor, par) -> torch.Tensor:
+    """Out of a row-parallel layer: the sum over ``model`` (scattered on T
+    under sequence parallelism), then the bias, once. In one process
+    ``partial`` is the layer's whole output, its bias added already."""
+    if par is None:
+        return partial
+    if par.sequence:
+        y = col.scatter_seq(partial, par.model_group)
+    else:
+        y = col.reduce_from(partial, par.model_group)
+    return y + bias.to(y.dtype)
+
+
+def _local_mask(pad_mask: torch.Tensor, par) -> torch.Tensor:
+    """This rank's T-shard of the (padded) mask under sequence parallelism."""
+    if par is None or not par.sequence:
+        return pad_mask
+    ts = pad_mask.shape[1] // par.model
+    return pad_mask[:, par.model_rank * ts:(par.model_rank + 1) * ts]
 
 
 # --------------------------------------------------------------------------
@@ -288,13 +336,18 @@ class _FeedForward(nn.Module):
                  dtype: torch.dtype = torch.float32, quantize: str = "none"):
         super().__init__()
         self.dropout = dropout
+        self.par = None
         self.ln = LayerNorm(d_model)
         self.w1 = _dense(d_model, ffn_dim, dtype, quantize)
         self.w2 = _dense(ffn_dim, d_model, dtype, quantize)
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
-        x = _drop(F.silu(self.w1(self.ln(x), train)), self.dropout, train, generator)
-        return _drop(self.w2(x, train), self.dropout, train, generator)
+        par = self.par
+        # under TP w1 is column-parallel (this rank's FFN columns), w2 row-parallel
+        h = F.silu(self.w1(_enter_tp(self.ln(x), par), train))
+        h = _drop(h, self.dropout, train, generator, "sharded")
+        y = _exit_tp(self.w2(h, train, bias=par is None), self.w2.bias, par)
+        return _drop(y, self.dropout, train, generator, _stream_region(par))
 
 
 class MaskedBatchNorm(nn.Module):
@@ -311,12 +364,19 @@ class MaskedBatchNorm(nn.Module):
     per-channel affine computed in fp32 and applied in x's dtype. The
     recompute of a checkpointed block (:func:`recomputing`) leaves the
     running statistics as the forward left them.
+
+    Over a mesh (``par``) the masked sums and the count are all-reduced
+    with their gradient (``torch.distributed.nn.functional.all_reduce``)
+    over ``data``, and over ``model`` too when T is sharded: the statistics
+    of the global batch, as the JAX package's are under GSPMD, and the same
+    running statistics on every rank.
     """
 
     def __init__(self, d: int, epsilon: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.par = None
         self.weight = nn.Parameter(torch.ones(d))
         self.bias = nn.Parameter(torch.zeros(d))
         self.register_buffer("mean", torch.zeros(d))
@@ -328,9 +388,12 @@ class MaskedBatchNorm(nn.Module):
         if train:
             m = mask[:, :, None].to(torch.float32)
             xf = x.to(torch.float32)
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(dim=(0, 1)) / cnt
-            ex2 = (xf.square() * m).sum(dim=(0, 1)) / cnt
+            if self.par is None:
+                cnt = torch.clamp(m.sum(), min=1.0)
+                mean = (xf * m).sum(dim=(0, 1)) / cnt
+                ex2 = (xf.square() * m).sum(dim=(0, 1)) / cnt
+            else:
+                mean, ex2, cnt = self._global_moments(xf, m)
             var = torch.clamp(ex2 - mean.square(), min=0.0)
             if not recomputing():
                 with torch.no_grad():
@@ -341,6 +404,21 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.epsilon) * self.weight
         return x * inv.to(x.dtype) + (self.bias - mean * inv).to(x.dtype)
+
+    def _global_moments(self, xf: torch.Tensor, m: torch.Tensor):
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        c = xf.shape[-1]
+        sums = torch.cat([(xf * m).sum(dim=(0, 1)), (xf.square() * m).sum(dim=(0, 1)),
+                          m.sum().reshape(1)])
+        par = self.par
+        if par.sequence:  # the whole mesh: every data row and T-shard
+            sums = all_reduce(sums, group=dist.group.WORLD)
+        elif par.data > 1:
+            sums = all_reduce(sums, group=par.data_group)
+        cnt = torch.clamp(sums[2 * c], min=1.0)
+        return sums[:c] / cnt, sums[c:2 * c] / cnt, cnt
 
 
 class _ConvModule(nn.Module):
@@ -358,6 +436,7 @@ class _ConvModule(nn.Module):
         self.conv_norm = conv_norm
         self.dropout = dropout
         self.depthwise_impl = depthwise_impl
+        self.par = None
         self.ln = LayerNorm(d_model)
         self.pw1 = _dense(d_model, 2 * d_model, dtype, quantize)
         self.dw = Conv1d(
@@ -373,11 +452,18 @@ class _ConvModule(nn.Module):
     def forward(
         self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None
     ) -> torch.Tensor:
+        par = self.par
+        pad_mask = _local_mask(pad_mask, par)
         a, b = self.pw1(self.ln(x), train).chunk(2, dim=-1)
         x = a * torch.sigmoid(b)  # GLU
         # zero padded frames so the depthwise conv sees the same zeros a
         # shorter bucket would — exact padding invariance
         x = x.masked_fill(~pad_mask[:, :, None], 0.0)
+        # a T-shard convolves with (K − 1)/2 frames of each neighbour around
+        # it and keeps its own frames
+        h = (self.dw.kernel_size[0] - 1) // 2 if par is not None and par.sequence else 0
+        if h:
+            x = col.halo(x, h, par.model_group)
         if self.depthwise_impl == "pallas":
             # the stencil runs channel-last; self.dw only holds weight
             # (C, 1, K) and bias (C,), nn.Conv's names (DepthwiseConv1d's)
@@ -386,8 +472,11 @@ class _ConvModule(nn.Module):
             x = depthwise_conv1d(x.to(dt), w, self.dw.bias.to(dt))
         else:
             x = self.dw(x.transpose(1, 2)).transpose(1, 2)
+        if h:
+            x = x[:, h:x.shape[1] - h]
         x = self.bn(x, pad_mask, train) if self.conv_norm == "batch" else self.cn(x)
-        return _drop(self.pw2(F.silu(x), train), self.dropout, train, generator)
+        return _drop(self.pw2(F.silu(x), train), self.dropout, train, generator,
+                     _stream_region(par))
 
 
 class _MultiHeadAttention(nn.Module):
@@ -403,7 +492,12 @@ class _MultiHeadAttention(nn.Module):
 
     Training dropout on the weights is flax's default ``broadcast_dropout``:
     ONE (T, T) keep-mask shared by every batch row and head, applied to the
-    softmax weights before ``·v``."""
+    softmax weights before ``·v``.
+
+    Under tensor parallelism (``parallel/partition.py``) the projections
+    hold this rank's heads, ``num_heads`` counts them, and ``forward``
+    returns ``out``'s partial product without its bias (the caller sums
+    over ``model`` and adds it)."""
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, impl: str = "flax",
                  dtype: torch.dtype = torch.float32):
@@ -419,17 +513,20 @@ class _MultiHeadAttention(nn.Module):
         self.out = Dense(d_model, d_model, dtype)
 
     def forward(
-        self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None
+        self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None,
+        partial: bool = False,
     ) -> torch.Tensor:
-        B, T, D = x.shape
+        B, T, _ = x.shape
         H = self.num_heads
-        hd = D // H
-        q = self.query(x).view(B, T, H, hd).transpose(1, 2)  # (B, H, T, hd)
+        q = self.query(x)
+        hd = q.shape[-1] // H
+        q = q.view(B, T, H, hd).transpose(1, 2)  # (B, H, T, hd)
         k = self.key(x).view(B, T, H, hd).transpose(1, 2)
         v = self.value(x).view(B, T, H, hd).transpose(1, 2)
         mult = None
         if train and self.dropout > 0.0:
-            mult = keep_multiplier((T, T), self.dropout, generator, v.device, v.dtype)
+            mult = keep_multiplier((T, T), self.dropout, stream(generator, "shared"), v.device,
+                                   v.dtype)
         if self.impl == "fused":
             ctx = fused_attention(q, k, v, pad_mask, mult)
         else:
@@ -446,7 +543,7 @@ class _MultiHeadAttention(nn.Module):
                 e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
                 w = e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(e.dtype)
             ctx = torch.matmul(w if mult is None else w * mult, v)
-        return self.out(ctx.transpose(1, 2).reshape(B, T, D))
+        return self.out(ctx.transpose(1, 2).reshape(B, T, H * hd), bias=not partial)
 
 
 class _SelfAttention(nn.Module):
@@ -454,14 +551,19 @@ class _SelfAttention(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
+        self.par = None
         self.ln = LayerNorm(d_model)
         self.mha = _MultiHeadAttention(d_model, num_heads, dropout, impl, dtype)
 
     def forward(
         self, x: torch.Tensor, pad_mask: torch.Tensor, train: bool = False, generator=None
     ) -> torch.Tensor:
-        x = self.mha(self.ln(x), pad_mask, train, generator)
-        return _drop(x, self.dropout, train, generator)
+        par = self.par
+        # under TP full T and this rank's heads; `out` row-parallel
+        x = self.mha(_enter_tp(self.ln(x), par), pad_mask, train, generator,
+                     partial=par is not None)
+        x = _exit_tp(x, self.mha.out.bias, par)
+        return _drop(x, self.dropout, train, generator, _stream_region(par))
 
 
 class ConformerBlock(nn.Module):
@@ -514,6 +616,7 @@ class EMGConformerEncoder(nn.Module):
         super().__init__()
         _warn_attn_remat(cfg)
         self.cfg = cfg
+        self.par = None
         self.subsample = Conv1dSubsampler(cfg)
         self.blocks = nn.ModuleList(ConformerBlock(cfg) for _ in range(cfg.num_layers))
 
@@ -533,12 +636,22 @@ class EMGConformerEncoder(nn.Module):
         pad_mask = _length_mask(out_lengths, t_out)
         if c.scan_layers:  # the JAX package's scan carry: fp32 into block_0
             x = x.to(torch.float32)
+        par = self.par
+        if par is not None and par.sequence:
+            # T-shards over `model`: T′ padded to a multiple of the degree
+            # (as GSPMD pads it), the padding masked like any padded frame
+            t_pad = -(-t_out // par.model) * par.model
+            x = col.split_seq(F.pad(x, (0, 0, 0, t_pad - t_out)), par.model_group)
+            pad_mask = _length_mask(out_lengths, t_pad)
         for block in self.blocks:
             if c.remat and torch.is_grad_enabled():
                 x = _remat(functools.partial(block, pad_mask=pad_mask, train=train,
                                              generator=generator), x, generator, c.remat_policy)
             else:
                 x = block(x, pad_mask, train, generator)
+        if par is not None and par.sequence:  # whole rows again for the heads
+            x = col.gather_rows(x, par.model_group)[:, :t_out]
+            pad_mask = pad_mask[:, :t_out]
         # zero padded frames: downstream decoders consume masked positions
         x = x.masked_fill(~pad_mask[:, :, None], 0.0)
         return x.float(), out_lengths

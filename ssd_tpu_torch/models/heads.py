@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssd_tpu_torch.models.conformer import Dense
-from ssd_tpu_torch.ops.dropout import dropout
+from ssd_tpu_torch.ops.dropout import dropout, stream
 
 
 class ProjectionHead(nn.Module):
@@ -25,7 +25,7 @@ class ProjectionHead(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         if train:
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, stream(generator, "replicated"))
         return self.proj(x).float()  # distillation MSE always in fp32
 
 
@@ -39,5 +39,5 @@ class CTCHead(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         """(B, T, D) → (B, T, V) log-probs (fp32 — CTC numerics)."""
         if train:
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, stream(generator, "replicated"))
         return F.log_softmax(self.fc(x).float(), dim=-1)

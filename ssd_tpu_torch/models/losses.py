@@ -13,7 +13,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,8 +55,13 @@ def distillation_mse(
     teacher: torch.Tensor,
     teacher_lengths: Optional[torch.Tensor],
     normalize: bool = False,
+    count_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Masked MSE between student frames and time-aligned teacher frames."""
+    """Masked MSE between student frames and time-aligned teacher frames.
+
+    ``count_reduce`` sums the valid-frame count over the data-parallel
+    ranks (the JAX package's count is of the global batch), so each rank's
+    value is its share of the global loss."""
     B, t_s, d = student.shape
     t_t = teacher.shape[1]
     teacher = teacher.to(torch.float32)
@@ -79,7 +84,10 @@ def distillation_mse(
         s, t = _layer_norm(s), _layer_norm(t)
 
     sq = (s - t) ** 2 * mask[:, :, None]
-    denom = torch.clamp(mask.sum() * d, min=1)
+    count = mask.sum()
+    if count_reduce is not None:
+        count = count_reduce(count)
+    denom = torch.clamp(count * d, min=1)
     return sq.sum() / denom
 
 

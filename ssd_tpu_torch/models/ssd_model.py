@@ -15,8 +15,11 @@ int8`` / ``int8_prequant`` serve the FFN and pointwise Dense layers in int8
 (``ops/quant.py``; an ``int8_prequant`` model loads a state dict that
 ``prequantize_state_dict`` converted). Values that
 select a path the port does not have yet raise ``NotImplementedError``
-naming the ROADMAP item that will; ``sequence_parallel``, a mesh
-annotation, is accepted and ignored on one device.
+naming the ROADMAP item that will (``pipeline_microbatches``: Q1.10b, the
+GPipe schedule). ``sequence_parallel`` shards the blocks' per-position
+regions on T when the trainer places the model over a ``model`` axis above
+1 (``parallel/partition.py:shard_model``); on one device it changes
+nothing.
 """
 
 from __future__ import annotations
@@ -114,7 +117,8 @@ def build_model(cfg: Dict[str, Any], input_dim: int, vocab_size: int) -> SSDMode
         )
     if encoder_cfg.pipeline_microbatches > 0:
         raise _not_ported(
-            "pipeline_microbatches", encoder_cfg.pipeline_microbatches, "queue 1 item 10"
+            "pipeline_microbatches", encoder_cfg.pipeline_microbatches,
+            "Q1.10b, the GPipe schedule of parallel/pipeline.py",
         )
     return SSDModel(
         encoder_cfg=encoder_cfg,

@@ -142,12 +142,13 @@ class QuantDense(nn.Module):
         self.register_buffer("scale", torch.ones((out_features,), dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(out_features))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, bias: bool = True) -> torch.Tensor:
+        """``bias=False``: the product alone, as ``Dense`` takes it."""
         if train:
             raise ValueError(INFERENCE_ONLY)
         dt = self.compute_dtype
         y = int8_prequant_linear(x.to(dt), self.weight, self.scale).to(dt)
-        return y + self.bias.to(dt)
+        return y + self.bias.to(dt) if bias else y
 
 
 _ELIGIBLE_WEIGHT = re.compile(r"(^|\.)(%s)\.weight$" % "|".join(QUANT_ELIGIBLE))

@@ -17,7 +17,10 @@ JAX engine's buckets — raw samples to ``SAMPLE_BUCKET`` multiples, batches to
 (length ``n_fft``) for the same request.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU; a
-missing card raises.
+missing card raises. ``data_parallel=True`` replicates the model on every
+visible card (or on ``devices``) and splits each batch's rows across them
+(``parallel/replicas.py``); with one device it warns and serves on it, as
+the JAX engine does.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ssd_tpu_torch.decoding.ctc import build_beam_decoder, build_greedy_decoder
 from ssd_tpu_torch.models.ssd_model import build_model
 from ssd_tpu_torch.ops.featurizer import FeaturizerConfig, logmel_batch
 from ssd_tpu_torch.ops.quant import maybe_prequantize
+from ssd_tpu_torch.parallel.replicas import data_parallel_replicas
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, load_config_for
 from ssd_tpu_torch.utils.device import resolve_device
 
@@ -92,14 +96,10 @@ class InferenceEngine:
         data_parallel: bool = False,
         quantize: Optional[str] = None,
         device: str | torch.device = "cuda",
+        devices: Optional[Sequence[str | torch.device]] = None,
     ) -> None:
         if decoder not in ("greedy", "beam"):
             raise ValueError(f"decoder must be 'greedy' or 'beam', got {decoder!r}")
-        if data_parallel:
-            raise NotImplementedError(
-                "data-parallel serving is not ported to ssd_tpu_torch yet "
-                "(ROADMAP.md queue 1 item 10)"
-            )
         # inference-time quantization override (the server's --quantize):
         # any float checkpoint serves int8 with the same weights
         if quantize is not None:
@@ -153,6 +153,10 @@ class InferenceEngine:
         # int8_prequant: the eligible weights converted once, here
         model.load_state_dict(maybe_prequantize(state_dict, model.encoder_cfg))
         self.model = model.to(self.device).eval()
+        # data parallelism: a replica a device, each batch's rows split
+        self.replicas = (
+            data_parallel_replicas(self.model, self.device, devices) if data_parallel else None
+        )
         self.stats = LatencyStats()
         # one device, one stream: requests from the HTTP threads and the
         # micro-batcher run the device work one batch at a time
@@ -193,16 +197,23 @@ class InferenceEngine:
         and the exported artifact (``serving/export.py``) run it whole; the
         streaming window (``serving/streaming.py``) featurizes with its own
         running z-norm and runs :meth:`encode`."""
+        if self.replicas is not None:
+            return self.replicas.split(self._pipeline_on, emg, sample_lengths, self.feat_cfg.n_fft)
+        return self._pipeline_on(self.model, emg, sample_lengths)
+
+    def _pipeline_on(self, model, emg: torch.Tensor, sample_lengths: torch.Tensor):
         feats, frame_lengths, _, _ = logmel_batch(emg, sample_lengths, self.feat_cfg)
-        return self.encode(feats, frame_lengths)
+        return self.encode(feats, frame_lengths, model)
 
     def encode(
-        self, feats: torch.Tensor, frame_lengths: torch.Tensor
+        self, feats: torch.Tensor, frame_lengths: torch.Tensor, model=None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Features ``(B, T, C, M)`` → ``(log_probs, out_lengths)``: the
-        encoder and the CTC head."""
+        encoder and the CTC head (of ``model``, a replica, else the
+        engine's)."""
         B, T, C, M = feats.shape
-        return self.model.ctc_log_probs(feats.reshape(B, T, C * M), frame_lengths)
+        model = self.model if model is None else model
+        return model.ctc_log_probs(feats.reshape(B, T, C * M), frame_lengths)
 
     @torch.inference_mode()
     def forward(self, emg_arrays: Sequence[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:

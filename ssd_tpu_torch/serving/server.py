@@ -339,7 +339,9 @@ def build_parser() -> argparse.ArgumentParser:
     # None → the checkpoint config's decoding block, then 0.5 / 0.0
     p.add_argument("--alpha", type=float, default=None, help="LM weight (LM fusion only).")
     p.add_argument("--beta", type=float, default=None, help="Word bonus (LM fusion only).")
-    p.add_argument("--data-parallel", action="store_true", help="Not ported yet.")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="Replicate the model on every visible card and split each batch's "
+                   "rows across them (one card: a warning, then one device).")
     p.add_argument("--compile-cache", type=Path, default=None,
                    help="Accepted for the JAX server's launch lines and unused: the CUDA "
                    "kernels are cached in ssd_tpu_torch/_build/ by source hash.")

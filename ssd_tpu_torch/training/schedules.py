@@ -13,6 +13,13 @@ clip_by_global_norm, adamw))``:
 * AdamW with b1 0.9, b2 0.999, eps 1e-8 and decoupled decay on every
   parameter (``torch.optim.AdamW``, whose update is optax's ``adamw``);
 * lr = ``schedule(update_count)``, set on the param group before each update.
+
+Over a mesh the parameters may be local TP slices or FSDP2 ``DTensor``
+shards: the accumulation and the clip work on each one's local tensor,
+``grad_norm`` (``parallel/partition.py:grad_norm_fn``) takes the norm over
+the whole mesh, and :meth:`Optimizer.state_dict` / ``load_state_dict`` take
+a ``gather`` / ``scatter`` that turn each per-parameter tensor into the
+full one and back, so the saved state is the same at any topology.
 """
 
 from __future__ import annotations
@@ -22,7 +29,10 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from ssd_tpu_torch.parallel.partition import local_tensor as _local
+
 Schedule = Callable[[int], float]
+PerParam = Callable[[int, torch.Tensor], torch.Tensor]
 
 
 def build_schedule(cfg: Dict[str, Any], base_lr: float, total_updates: int) -> Schedule:
@@ -73,6 +83,11 @@ def build_schedule(cfg: Dict[str, Any], base_lr: float, total_updates: int) -> S
     raise ValueError(f"Unknown scheduler {name!r}")
 
 
+def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax's global norm of the tensors this process holds."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([_local(g) for g in grads])))
+
+
 class Optimizer:
     """Clip + AdamW + schedule + gradient accumulation over ``params``.
 
@@ -88,8 +103,10 @@ class Optimizer:
         weight_decay: float = 0.0,
         clip: float = 0.0,
         grad_accum: int = 1,
+        grad_norm: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None,
     ) -> None:
         self.params: List[torch.nn.Parameter] = list(params)
+        self.grad_norm = grad_norm
         self.schedule = schedule
         self.clip = float(clip)
         self.grad_accum = max(1, int(grad_accum))
@@ -112,9 +129,10 @@ class Optimizer:
             if self._acc is None:
                 self._acc = [torch.zeros_like(p) for p in self.params]
             # MultiSteps' running mean: acc + (g − acc) / (n + 1)
-            delta = torch._foreach_sub(grads, self._acc)
+            acc = [_local(a) for a in self._acc]
+            delta = torch._foreach_sub([_local(g) for g in grads], acc)
             torch._foreach_div_(delta, self.mini_step + 1)
-            torch._foreach_add_(self._acc, delta)
+            torch._foreach_add_(acc, delta)
             self.mini_step = (self.mini_step + 1) % self.grad_accum
             if self.mini_step:
                 return False
@@ -127,13 +145,15 @@ class Optimizer:
     @torch.no_grad()
     def _apply(self, grads: List[torch.Tensor]) -> None:
         if self.clip > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = (self.grad_norm or _global_norm)(grads)
             # optax.clip_by_global_norm: (g / norm) · clip iff norm >= clip,
-            # in that order; below the clip g / 1 · 1 leaves g exact
+            # in that order; below the clip g / 1 · 1 leaves g exact. Each
+            # local tensor (a shard's, over a mesh) is scaled in place
             keep = norm < self.clip
             one = torch.ones_like(norm)
-            grads = torch._foreach_div(grads, torch.where(keep, one, norm))
-            torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, self.clip)))
+            local = [_local(g) for g in grads]
+            torch._foreach_div_(local, torch.where(keep, one, norm))
+            torch._foreach_mul_(local, torch.where(keep, one, torch.full_like(norm, self.clip)))
         for p, g in zip(self.params, grads):
             p.grad = g
         for group in self.adamw.param_groups:
@@ -152,26 +172,47 @@ class Optimizer:
             p.grad = None
 
     # ------------------------------------------------------------- state
-    def state_dict(self) -> Dict[str, Any]:
+    def state_dict(self, gather: Optional[PerParam] = None) -> Dict[str, Any]:
+        """``gather(i, t)`` maps parameter ``i``'s moment or accumulator to
+        the tensor to save (collective over a mesh: every rank calls it)."""
+        adamw = self.adamw.state_dict()
+        if gather is not None:
+            adamw["state"] = {
+                i: {k: gather(i, v) if k != "step" else v for k, v in st.items()}
+                for i, st in adamw["state"].items()
+            }
+        g = gather or (lambda i, a: a.detach().cpu())
         return {
-            "adamw": self.adamw.state_dict(),
+            "adamw": adamw,
             "update_count": self.update_count,
             "mini_step": self.mini_step,
-            "acc": None if self._acc is None else [a.detach().cpu() for a in self._acc],
+            "acc": None if self._acc is None else [g(i, a) for i, a in enumerate(self._acc)],
         }
 
-    def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+    def load_state_dict(self, state: Dict[str, Any], scatter: Optional[PerParam] = None) -> None:
+        """``scatter(i, t)`` cuts a saved full tensor to parameter ``i``'s
+        piece (the inverse of :meth:`state_dict`'s ``gather``)."""
+        adamw = state["adamw"]
+        if scatter is not None:
+            adamw = dict(adamw, state={
+                i: {k: scatter(int(i), v) if k != "step" else v for k, v in st.items()}
+                for i, st in adamw["state"].items()
+            })
+        self.adamw.load_state_dict(adamw)
         self.update_count = int(state["update_count"])
         self.mini_step = int(state["mini_step"])
         acc = state.get("acc")
-        self._acc = None if acc is None else [
-            a.to(p.device) for a, p in zip(acc, self.params)
-        ]
+        if acc is None:
+            self._acc = None
+        elif scatter is not None:
+            self._acc = [scatter(i, a) for i, a in enumerate(acc)]
+        else:
+            self._acc = [a.to(p.device) for a, p in zip(acc, self.params)]
 
 
 def build_optimizer(
-    cfg: Dict[str, Any], params: Iterable[torch.nn.Parameter], total_updates: int
+    cfg: Dict[str, Any], params: Iterable[torch.nn.Parameter], total_updates: int,
+    grad_norm: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None,
 ) -> Tuple[Optimizer, Schedule]:
     """AdamW + clip + schedule + grad accumulation (reference semantics)."""
     optim_cfg = cfg["optim"]
@@ -182,5 +223,6 @@ def build_optimizer(
         weight_decay=float(optim_cfg.get("weight_decay", 0.0)),
         clip=float(optim_cfg.get("clip_grad_norm", 0.0)),
         grad_accum=int(optim_cfg.get("grad_accum", 1)),
+        grad_norm=grad_norm,
     )
     return opt, schedule

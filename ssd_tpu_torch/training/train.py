@@ -25,6 +25,18 @@ The entry points run on the card unless the caller asks for the CPU
 (``device="cpu"`` / ``--device cpu``); a missing card raises. Config values
 that select a path this slice does not port raise ``NotImplementedError``
 naming their ROADMAP item.
+
+Over several cards (``python -m torch.distributed.run --nproc-per-node N
+-m ssd_tpu_torch.training.train ...``, one process a card, NCCL; gloo with
+``--device cpu``) the ``parallel:`` block places the model over a ``(data,
+model)`` mesh (``parallel/``): data parallelism, ``model`` tensor
+parallelism, ``sequence`` parallelism and ``fsdp``, as the JAX trainer
+reads them; ``pipeline_microbatches`` raises (Q1.10b). Each rank takes its
+rows of the node's batch; the CTC weight sum, the distillation count and
+the BatchNorm statistics are those of the global batch, and each rank's
+loss is scaled so that the averaged gradient is the global batch's.
+Logging, scalars and checkpoints are rank 0's; a checkpoint holds the full
+tensors, so it loads at any topology.
 """
 
 from __future__ import annotations
@@ -34,7 +46,6 @@ import contextlib
 import json
 import logging
 import math
-import os
 import signal
 import threading
 import time
@@ -57,7 +68,24 @@ from ssd_tpu_torch.models.conformer import init_flax_style
 from ssd_tpu_torch.models.losses import LossWeights, distillation_mse
 from ssd_tpu_torch.models.ssd_model import SSDModel, build_model
 from ssd_tpu_torch.ops.ctc_loss import ctc_loss
+from ssd_tpu_torch.ops.dropout import RngStreams, stream
 from ssd_tpu_torch.ops.featurizer import FeaturizerConfig, logmel_batch
+from ssd_tpu_torch.parallel.mesh import (
+    ParallelContext,
+    RowSplit,
+    maybe_initialize_distributed,
+    mesh_from_config,
+    rank_device,
+    row_split,
+)
+from ssd_tpu_torch.parallel.partition import (
+    full_state_dict,
+    gather_for,
+    grad_norm_fn,
+    local_piece,
+    shard_model,
+    sync_grads,
+)
 from ssd_tpu_torch.training.checkpoint import (
     load_checkpoint,
     load_params_partial,
@@ -118,6 +146,7 @@ def _losses(
     generator: Optional[torch.Generator],
     augment: Optional[Tuple] = None,
     featurize: Optional[FeaturizerConfig] = None,
+    par: Optional[ParallelContext] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and its {"total", "ctc", "distill"} parts for one batch.
 
@@ -125,7 +154,12 @@ def _losses(
     running averages update in place). ``featurize`` (raw-EMG mode) log-mels
     ``batch["emg"]`` inside the step; ``augment=(spec_cfg, chan_cfg,
     n_mels)`` runs channel dropout then SpecAugment on the device.
+
+    Over ``data`` ranks (``par``) the weight sum and the distillation count
+    are the global batch's: the returned total is this rank's share of the
+    global loss, the parts dict the global values.
     """
+    dp = par is not None and par.data > 1
     emg = batch["emg"]
     emg_lengths = batch["emg_lengths"]
     if featurize is not None:
@@ -134,6 +168,7 @@ def _losses(
         emg = feats.reshape(B, T, C * M)
     if train and augment is not None and generator is not None:
         spec_cfg, chan_cfg, n_mels = augment
+        generator = stream(generator, "replicated")
         if chan_cfg is not None:
             B, T, F = emg.shape
             emg = channel_dropout(
@@ -145,7 +180,7 @@ def _losses(
     log_probs, out_lengths, student = model(emg, emg_lengths, train=train, generator=generator)
 
     w = batch["weight"]
-    w_sum = torch.clamp(w.sum(), min=1.0)
+    w_sum = torch.clamp(par.all_reduce(w.sum()) if dp else w.sum(), min=1.0)
     per_sample = ctc_loss(log_probs, out_lengths, batch["tokens"], batch["token_lengths"], blank_id)
     denom = torch.clamp(batch["token_lengths"], min=1).to(torch.float32)
     ctc = (w * per_sample / denom).sum() / w_sum
@@ -157,25 +192,36 @@ def _losses(
             batch["teacher"],
             batch["teacher_lengths"],
             normalize=normalize_distill,
+            count_reduce=par.all_reduce if dp else None,
         )
     else:
         distill = torch.zeros((), dtype=torch.float32, device=log_probs.device)
 
     total = lambdas[0] * ctc + lambdas[1] * distill
-    return total, {"total": total, "ctc": ctc, "distill": distill}
+    parts = {"total": total, "ctc": ctc, "distill": distill}
+    if dp:
+        summed = par.all_reduce(torch.stack([total, ctc, distill]).detach())
+        parts = dict(zip(("total", "ctc", "distill"), summed.unbind()))
+    return total, parts
 
 
-def make_train_step(blank_id, normalize_distill, augment=None, featurize=None):
+def make_train_step(blank_id, normalize_distill, augment=None, featurize=None, par=None):
     """One micro-step: forward + loss, backward, optimizer (which applies an
-    update every ``grad_accum`` micro-steps)."""
+    update every ``grad_accum`` micro-steps). Over a mesh (``par``) each
+    rank's share of the loss is scaled by the data degree, and the
+    gradients are summed over ``model`` where T-sharded and averaged over
+    ``data`` (``parallel/partition.py:sync_grads``) before the update."""
 
     def train_step(state: TrainState, batch, lambdas, generator):
         state.optimizer.zero_grad()
         total, losses = _losses(
             state.model, batch, lambdas, blank_id, normalize_distill, True,
-            generator, augment, featurize,
+            generator, augment, featurize, par,
         )
+        if par is not None and par.data > 1:
+            total = total * par.data
         total.backward()
+        sync_grads(state.model)
         state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in losses.items()}
@@ -208,14 +254,15 @@ def flush_partial_accumulation(state: TrainState, flush_step, grad_accum: int) -
     return state
 
 
-def make_eval_step(blank_id, normalize_distill, featurize=None):
-    """Losses with running statistics, no dropout and no statistics update."""
+def make_eval_step(blank_id, normalize_distill, featurize=None, par=None):
+    """Losses with running statistics, no dropout and no statistics update
+    (the global batch's over a mesh)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, lambdas):
         _, losses = _losses(
             state.model, batch, lambdas, blank_id, normalize_distill, False,
-            None, None, featurize,
+            None, None, featurize, par,
         )
         return losses
 
@@ -262,6 +309,22 @@ class PreemptionGuard:
         return False
 
 
+# over a mesh: how many batches between agreements on the stop flag (each a
+# one-element all-reduce: cheap, but a host sync)
+_PREEMPT_SYNC_EVERY = 32
+
+
+def _stop_requested_globally(guard: PreemptionGuard, device: torch.device) -> bool:
+    """True iff ANY rank was signalled, the same answer on every rank: a
+    rank that stopped alone would leave the others blocked in the next
+    step's collectives."""
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(guard.requested)], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
 def run_train_epoch(
     train_step,
     state: TrainState,
@@ -275,15 +338,24 @@ def run_train_epoch(
     schedule,
     grad_accum: int,
     stop_flag: Optional[PreemptionGuard] = None,
+    split: RowSplit = RowSplit(),
+    par: Optional[ParallelContext] = None,
 ) -> Tuple[TrainState, Dict[str, float]]:
     last_losses = None
     n_batches = 0
     n_utterances = 0
     epoch_start = time.time()
     for batch in prefetch(loader):
-        if stop_flag is not None and stop_flag.requested:
-            break
-        arrays = batch_to_arrays(batch, include_teacher)
+        # one process polls its flag every batch; ranks agree every
+        # _PREEMPT_SYNC_EVERY batches (they all step the same batch count)
+        if stop_flag is not None:
+            if par is None:
+                if stop_flag.requested:
+                    break
+            elif n_batches % _PREEMPT_SYNC_EVERY == 0 and _stop_requested_globally(
+                    stop_flag, device):
+                break
+        arrays = split.take(batch_to_arrays(batch, include_teacher), batch.size)
         state, losses = train_step(state, to_device(arrays, device), lambdas, generator)
         last_losses = losses
         n_batches += 1
@@ -301,17 +373,20 @@ def run_train_epoch(
         torch.cuda.synchronize(device)
     wall = max(time.time() - epoch_start, 1e-9)
     final["batches"] = n_batches
-    final["utterances_per_sec_per_chip"] = n_utterances / wall
+    # the node batches of every node, over every device (JAX: mesh.size)
+    world = par.world if par is not None else 1
+    final["utterances_per_sec_per_chip"] = n_utterances * split.num_shards / wall / world
     return state, final
 
 
 def run_eval_epoch(
     eval_step, state: TrainState, loader: DataLoader, device: torch.device, lambdas,
-    include_teacher: bool,
+    include_teacher: bool, split: RowSplit = RowSplit(),
 ) -> Dict[str, float]:
     totals, ctcs, distills = [], [], []
     for batch in prefetch(loader):
-        losses = eval_step(state, to_device(batch_to_arrays(batch, include_teacher), device), lambdas)
+        arrays = split.take(batch_to_arrays(batch, include_teacher), batch.size)
+        losses = eval_step(state, to_device(arrays, device), lambdas)
         totals.append(float(losses["total"]))
         ctcs.append(float(losses["ctc"]))
         distills.append(float(losses["distill"]))
@@ -348,6 +423,36 @@ def _augment_cfgs(cfg: Dict[str, Any]):
     return spec_cfg, chan_cfg
 
 
+def _parallel_context(cfg: Dict[str, Any], dev: torch.device) -> Optional[ParallelContext]:
+    """The mesh of the ``parallel:`` block over the running process group,
+    with the JAX trainer's checks (``shard_model`` raises when the degree
+    does not divide the encoder's dims); ``None`` in one process."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = mesh_from_config(cfg, world, dev.type)
+    par = cfg.get("parallel") or {}
+    model_par = mesh.shape[1] if mesh is not None else 1
+    seq = bool(par.get("sequence", False))
+    if seq:
+        if model_par <= 1:
+            logger.warning("parallel.sequence=true has no effect with parallel.model=1")
+        # recorded in the checkpoint's config, as the JAX trainer does
+        cfg["model"]["encoder"]["sequence_parallel"] = True
+    if mesh is None:
+        return None
+    ctx = ParallelContext.from_mesh(mesh, sequence=seq, fsdp=bool(par.get("fsdp", False)))
+    if ctx.is_main:
+        logger.info("Mesh: {'data': %d, 'model': %d} over %d device(s)%s%s", ctx.data,
+                    ctx.model, ctx.world, " (fsdp)" if ctx.fsdp else "",
+                    " (seq-parallel)" if ctx.sequence else "")
+    return ctx
+
+
+def _quiet(*args, **kwargs) -> None:
+    pass
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to ssd_tpu_torch yet (ROADMAP.md {item})")
 
@@ -356,18 +461,8 @@ def _check_slice(cfg: Dict[str, Any]) -> None:
     """Refuse config values outside the port, and ``data.emg_dtype:
     bfloat16`` without a bf16 encoder (the JAX trainer's check)."""
     par = cfg.get("parallel") or {}
-    if int(par.get("model", 1)) > 1:
-        raise _not_ported(f"parallel.model={par['model']}", "queue 1 item 10")
-    data = par.get("data", "auto")
-    if data not in ("auto", None) and int(data) > 1:
-        raise _not_ported(f"parallel.data={data}", "queue 1 item 10")
-    for key in ("fsdp", "sequence"):
-        if par.get(key):
-            raise _not_ported(f"parallel.{key}", "queue 1 item 10")
     if int(par.get("pipeline_microbatches", 0) or 0) > 0:
-        raise _not_ported("parallel.pipeline_microbatches", "queue 1 item 10")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise _not_ported("training in more than one process", "queue 1 item 10")
+        raise _not_ported("parallel.pipeline_microbatches (the GPipe schedule)", "Q1.10b")
     enc = cfg["model"]["encoder"]
     if enc.get("quantize") == "int8_prequant":
         # int8 trains float: its forward quantizes only when not training
@@ -403,9 +498,35 @@ def train_from_config(
     ``resume=True`` continues from ``<run_dir>/last`` (weights, optimizer
     state, epoch and step); best-checkpoint tracking restarts there.
     ``profile_dir`` captures a ``torch.profiler`` trace of the first epoch.
+
+    Under a launcher (torchrun's ``RANK`` / ``WORLD_SIZE``, or the JAX
+    package's variables) the process group is joined first, NCCL for
+    ``device="cuda"`` (the rank's card is ``cuda:LOCAL_RANK``) and gloo for
+    ``"cpu"``, and left again at the end if this call joined it.
     """
-    dev = resolve_device(device)
+    import torch.distributed as dist
+
+    created = maybe_initialize_distributed(device=device)
+    try:
+        return _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resume,
+                      device, profile_dir)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resume, device,
+           profile_dir) -> Dict[str, Any]:
+    import torch.distributed as dist
+
     _check_slice(cfg)
+    dev = resolve_device(rank_device(device))
+    ctx = _parallel_context(cfg, dev)
+    split = row_split(ctx)
+    main_rank = ctx is None or ctx.is_main
+    info = logger.info if main_rank else _quiet
+    if not main_rank:
+        writer = profile_dir = None
     run_dir = Path(run_dir)
     seed = int(cfg["logging"].get("seed", 42))
     np.random.seed(seed)
@@ -427,17 +548,17 @@ def train_from_config(
     if overfit_batches > 0:
         train_limit = val_limit = overfit_batches * cfg["optim"]["batch_size"]
         shuffle_train = False
-        logger.info("Overfitting on %d batches (~%d items)", overfit_batches, train_limit)
+        info("Overfitting on %d batches (~%d items)", overfit_batches, train_limit)
 
     num_workers = int(cfg["data"].get("num_workers", cfg["optim"].get("num_workers", 0)))
     if num_workers > 0:
-        logger.info(
+        info(
             "num_workers=%d: the loader runs in-process with its prefetch thread "
             "(batches are bit-identical either way; the worker pool is ROADMAP.md "
             "queue 1 item 15)", num_workers,
         )
     if bool(cfg["logging"].get("async_checkpoints", False)):
-        logger.info(
+        info(
             "logging.async_checkpoints: true is not honoured: the port saves each "
             "checkpoint synchronously (the saved contents are the same either way)"
         )
@@ -454,6 +575,9 @@ def train_from_config(
         # input to its compute dtype
         teacher_dtype=str(cfg["data"].get("teacher_dtype", "float32")),
         emg_dtype=str(cfg["data"].get("emg_dtype", "float32")),
+        # a node's shard of every global batch (optim.batch_size is per node)
+        num_shards=split.num_shards,
+        shard_index=split.shard_index,
     )
     train_loader = make_dataloader(
         splits=cfg["data"]["train_splits"],
@@ -475,7 +599,7 @@ def train_from_config(
         max_items=val_limit,
         **common,
     )
-    logger.info(
+    info(
         "Train batches: %d | Val batches: %d | batch %d | accum %d | device %s",
         len(train_loader), len(val_loader), cfg["optim"]["batch_size"],
         cfg["optim"].get("grad_accum", 1), dev,
@@ -499,16 +623,13 @@ def train_from_config(
     model = build_model(cfg, input_dim=input_dim, vocab_size=vocab.size)
     init_flax_style(model, torch.Generator().manual_seed(seed))
     model.to(dev)
-    optimizer, schedule = build_optimizer(cfg, model.parameters(), total_updates)
-    state = TrainState(model=model, optimizer=optimizer)
-    generator = torch.Generator(dev).manual_seed(seed + 1)
 
     if init_checkpoint is not None:
-        logger.info("Warm start from %s", init_checkpoint)
+        info("Warm start from %s", init_checkpoint)
         payload = load_checkpoint(Path(init_checkpoint))
         model.load_state_dict(load_params_partial(model.state_dict(), payload["state_dict"]))
 
-    start_epoch = 1
+    payload = None
     if resume and (run_dir / "last").exists():
         payload = load_checkpoint(run_dir / "last")
         if "optimizer" not in payload or "epoch" not in payload:
@@ -517,11 +638,29 @@ def train_from_config(
                 "warm start from it with --init-checkpoint instead of --resume"
             )
         model.load_state_dict(payload["state_dict"])
-        optimizer.load_state_dict(payload["optimizer"])
+    # the full model, loaded, is placed over the mesh; the optimizer then
+    # holds this rank's pieces (checkpoints hold the full tensors)
+    shard_model(model, ctx)
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    optimizer, schedule = build_optimizer(cfg, params, total_updates, grad_norm_fn(model))
+    state = TrainState(model=model, optimizer=optimizer)
+    if ctx is not None and ctx.world > 1:
+        generator = RngStreams(seed + 1, ctx.data_rank, ctx.model_rank, dev)
+    else:
+        generator = torch.Generator(dev).manual_seed(seed + 1)
+
+    start_epoch = 1
+    if payload is not None:
+        scatter = None
+        if ctx is not None:
+            def scatter(i, t):
+                return local_piece(model, names[i], t, params[i])
+        optimizer.load_state_dict(payload["optimizer"], scatter=scatter)
         state.step = int(payload["step"])
         start_epoch = int(payload["epoch"]) + 1
         train_loader.epoch = start_epoch - 1  # keep per-epoch shuffles distinct
-        logger.info("Resuming %s at epoch %d", run_dir, start_epoch)
+        info("Resuming %s at epoch %d", run_dir, start_epoch)
 
     base_weights = LossWeights(
         lambda_distill=float(cfg["loss"]["lambda_distill"]),
@@ -535,8 +674,8 @@ def train_from_config(
     if on_device_augment and (spec_cfg is not None or chan_cfg is not None):
         n_mels = cfg.get("features", {}).get("emg", {}).get("n_mels", 80)
         augment = (spec_cfg, chan_cfg, int(n_mels))
-    train_step = make_train_step(blank_id, normalize_distill, augment, featurize)
-    eval_step = make_eval_step(blank_id, normalize_distill, featurize)
+    train_step = make_train_step(blank_id, normalize_distill, augment, featurize, ctx)
+    eval_step = make_eval_step(blank_id, normalize_distill, featurize, ctx)
     flush_step = make_flush_step() if grad_accum > 1 else None
 
     early = cfg["optim"].get("early_stopping", {}) or {}
@@ -544,10 +683,19 @@ def train_from_config(
     min_delta = float(early.get("min_delta", 0.0))
 
     def checkpoint(epoch: int, is_best: bool) -> None:
-        save_checkpoint(
-            run_dir, model.state_dict(), cfg, is_best=is_best,
-            optimizer=optimizer.state_dict(), epoch=epoch, step=state.step,
-        )
+        if ctx is None:
+            save_checkpoint(
+                run_dir, model.state_dict(), cfg, is_best=is_best,
+                optimizer=optimizer.state_dict(), epoch=epoch, step=state.step,
+            )
+            return
+        # every rank gathers (collectives); rank 0 writes
+        full = full_state_dict(model)
+        opt = optimizer.state_dict(gather=lambda i, t: gather_for(model, names[i], t))
+        if ctx.is_main:
+            save_checkpoint(run_dir, full, cfg, is_best=is_best, optimizer=opt, epoch=epoch,
+                            step=state.step)
+        dist.barrier()
 
     best_val = float("inf")
     best_epoch = 0
@@ -568,9 +716,12 @@ def train_from_config(
                 state, train_losses = run_train_epoch(
                     train_step, state, train_loader, dev, lambdas, generator,
                     include_teacher, writer, cfg["logging"].get("log_interval", 10),
-                    schedule, grad_accum, stop_flag=guard,
+                    schedule, grad_accum, stop_flag=guard, split=split, par=ctx,
                 )
-            if guard.requested:
+            # over a mesh the ranks agree again here: a signal may reach some
+            # ranks only, or after the epoch's last agreement, and every rank
+            # must take the same branch (both run collectives)
+            if guard.requested if ctx is None else _stop_requested_globally(guard, dev):
                 # save a resumable `last` labeled with the LAST COMPLETED
                 # epoch: --resume re-runs the interrupted one
                 checkpoint(epoch - 1, is_best=False)
@@ -583,9 +734,10 @@ def train_from_config(
             if flush_step is not None:
                 state = flush_partial_accumulation(state, flush_step, grad_accum)
             train_time = time.time() - start
-            val_losses = run_eval_epoch(eval_step, state, val_loader, dev, lambdas, include_teacher)
+            val_losses = run_eval_epoch(eval_step, state, val_loader, dev, lambdas,
+                                        include_teacher, split)
             history.append({"epoch": epoch, "train": train_losses, "val": val_losses})
-            logger.info(
+            info(
                 "Epoch %d done in %.1fs | train total %.4f | val total %.4f (ctc %.4f, "
                 "distill %.4f) | λ_ctc %.2f λ_distill %.2f | %.2f utt/s",
                 epoch, train_time, train_losses.get("total", float("nan")),
@@ -611,7 +763,7 @@ def train_from_config(
             if dry_run:
                 break
             if patience and patience_counter >= patience:
-                logger.info(
+                info(
                     "Early stopping at epoch %d (best %d, val %.4f)", epoch, best_epoch, best_val
                 )
                 break
@@ -728,11 +880,17 @@ def main(argv=None) -> None:
     args = _parse_args(argv)
     if args.compile_cache:
         logger.info("--compile-cache %s ignored: the port compiles nothing ahead", args.compile_cache)
+    import torch.distributed as dist
+
     cfg = load_config(args.config)
     run_name = cfg["logging"].get("run_name", "run")
     run_dir = args.run_dir or Path("results/checkpoints") / run_name
-    writer = make_writer(run_dir / "tb")
+    # under a launcher, join the group first: only rank 0 writes scalars
+    created = maybe_initialize_distributed(device=args.device)
+    writer = None
     try:
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            writer = make_writer(run_dir / "tb")
         train_from_config(
             cfg,
             run_dir,
@@ -745,7 +903,10 @@ def main(argv=None) -> None:
             profile_dir=args.profile_dir,
         )
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
+        if created:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -646,3 +646,62 @@ def test_quantized_dense_on_the_card_matches_the_cpu(cuda, mode):
         want = dense(x)
         got = dense.to(cuda)(x.to(cuda))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("parallel", [{}, {"fsdp": True}], ids=["dp", "fsdp"])
+def test_world_one_nccl_step_equals_one_process(cuda, tmp_path, parallel):
+    """A 1×1 mesh over NCCL (``parallel/``): two fused/pallas train steps
+    through ``shard_model`` (FSDP2 too) and the mesh's gradient sync and
+    norm, losses and unsharded weights bit-equal to the same steps in one
+    process."""
+    import copy
+
+    import torch.distributed as dist
+
+    from ssd_tpu_torch.models.conformer import init_flax_style
+    from ssd_tpu_torch.models.ssd_model import build_model
+    from ssd_tpu_torch.parallel.mesh import ParallelContext, mesh_from_config
+    from ssd_tpu_torch.parallel.partition import full_state_dict, grad_norm_fn, shard_model
+    from ssd_tpu_torch.training import train as ttrain
+    from ssd_tpu_torch.training.schedules import build_optimizer
+
+    cfg = {"model": {"encoder": dict(d_model=96, num_layers=2, num_heads=2, ffn_dim=192,
+                                     depthwise_conv_kernel_size=15, subsample_factor=2,
+                                     dropout=0.0, attention_impl="fused",
+                                     depthwise_impl="pallas"),
+                     "projection_dim": 64, "ctc_dropout": 0.0},
+           "optim": {"lr": 1e-3, "weight_decay": 1e-2, "clip_grad_norm": 1.0}}
+    rng = np.random.default_rng(0)
+    B, T, S = 3, 96, 16
+    batch = {"emg": torch.from_numpy(rng.normal(size=(B, T, 32)).astype(np.float32)),
+             "emg_lengths": torch.tensor([96, 70, 41], dtype=torch.int32),
+             "tokens": torch.from_numpy(rng.integers(3, 40, size=(B, S)).astype(np.int32)),
+             "token_lengths": torch.tensor([16, 9, 4], dtype=torch.int32),
+             "weight": torch.ones(B),
+             "teacher": torch.from_numpy(rng.normal(size=(B, 48, 64)).astype(np.float32)),
+             "teacher_lengths": torch.tensor([48, 35, 20], dtype=torch.int32)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    model = build_model(cfg, input_dim=32, vocab_size=48)
+    init_flax_style(model, torch.Generator().manual_seed(0))
+    models = {"one": copy.deepcopy(model).to(cuda), "mesh": copy.deepcopy(model).to(cuda)}
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, device_id=cuda)
+    try:
+        ctx = ParallelContext.from_mesh(mesh_from_config({"parallel": parallel}),
+                                        fsdp=bool(parallel))
+        shard_model(models["mesh"], ctx)
+        losses = {}
+        for name, m in models.items():
+            par = ctx if name == "mesh" else None
+            opt, _ = build_optimizer(cfg, list(m.parameters()), 10,
+                                     grad_norm_fn(m) if par else None)
+            step = ttrain.make_train_step(1, False, par=par)
+            state = ttrain.TrainState(model=m, optimizer=opt)
+            losses[name] = [float(step(state, batch, (0.65, 0.35), None)[1]["total"])
+                            for _ in range(2)]
+        assert losses["mesh"] == losses["one"]
+        got, want = full_state_dict(models["mesh"]), models["one"].state_dict()
+        assert all(torch.equal(got[k], want[k].cpu()) for k in want)
+    finally:
+        dist.destroy_process_group()

@@ -299,14 +299,19 @@ def test_cli_accepts_every_jax_eval_flag(monkeypatch, quiet):
 
 @pytest.mark.parametrize(
     "argv,error,match",
-    [(["--data-parallel"], NotImplementedError, "queue 1 item 10")],
+    [(["--data-parallel"], None, "only 1 device is visible")],
 )
-def test_cli_unported_options_raise(corpus, tmp_path, quiet, argv, error, match):
+def test_cli_unported_options_raise(corpus, tmp_path, quiet, caplog, argv, error, match):
+    """``--data-parallel`` with one device warns, as the JAX CLI does, and
+    evaluates on it: the predictions equal a run without the flag."""
     _, root = corpus
-    with pytest.raises(error, match=match):
-        teval.main(["--checkpoint", str(root / "torch_run" / "last"), "--device", "cpu",
-                    "--output", str(tmp_path / "out")] + argv)
-    assert not (tmp_path / "out" / "metrics.json").exists()
+    base = ["--checkpoint", str(root / "torch_run" / "last"), "--device", "cpu"]
+    with caplog.at_level("WARNING"):
+        teval.main(base + ["--output", str(tmp_path / "out")] + argv)
+    assert match in caplog.text
+    teval.main(base + ["--output", str(tmp_path / "plain")])
+    assert ((tmp_path / "out" / "predictions.jsonl").read_text()
+            == (tmp_path / "plain" / "predictions.jsonl").read_text())
 
 
 def test_quantized_checkpoint_raises(corpus, tmp_path, quiet):

@@ -22,6 +22,10 @@ names = ["ssd_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+missing = [m for m in ("ssd_tpu_torch.parallel.mesh", "ssd_tpu_torch.parallel.partition",
+                       "ssd_tpu_torch.parallel.collectives", "ssd_tpu_torch.parallel.replicas")
+           if m not in names]
+assert not missing, missing
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pandas", "tensorboardX",
@@ -41,5 +45,5 @@ def test_port_imports_no_jax_and_no_ssd_tpu():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 51  # the package, its 8 subpackages and 42 modules
+    assert int(n_modules) >= 56  # the package, its 9 subpackages and 46 modules
     assert bad == "[]", f"the port imported {bad}"

@@ -195,11 +195,18 @@ def test_http_round_trip(weights, tmp_path):
     assert not thread.is_alive()
 
 
-def test_engine_unported_options_raise(weights):
+def test_engine_unported_options_raise(weights, caplog):
+    """``data_parallel`` with one device warns, as the JAX engine does, and
+    serves on it: the same log-probs as the engine without it."""
     _, _, sd = weights
+    rng = np.random.default_rng(5)
+    reqs = [rng.normal(size=(n, CHANNELS)).astype(np.float32) for n in (3000, 5000)]
+    plain = teng.InferenceEngine(_cfg(), sd, default_vocab(), device="cpu")
     for kw in ({"data_parallel": True},):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            teng.InferenceEngine(_cfg(), sd, default_vocab(), device="cpu", **kw)
+        with caplog.at_level("WARNING"):
+            engine = teng.InferenceEngine(_cfg(), sd, default_vocab(), device="cpu", **kw)
+        assert "only 1 device is visible" in caplog.text and engine.replicas is None
+        assert torch.equal(engine.forward(reqs)[0], plain.forward(reqs)[0])
 
 
 @pytest.mark.parametrize("where", ["argument", "config"])

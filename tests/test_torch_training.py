@@ -382,14 +382,32 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu(tmp_path):
     ],
     ids=lambda o: o if isinstance(o, str) else next(iter(o)),
 )
-def test_unported_training_config_raises(tmp_path, monkeypatch, section, override):
+def test_unported_training_config_raises(tmp_path, monkeypatch, caplog, section, override):
+    """The ``parallel:`` block in one process without a launcher, as the
+    JAX trainer takes it on one device: ``model: 2`` raises ``make_mesh``'s
+    ``ValueError``, ``pipeline_microbatches`` is still not ported (Q1.10b),
+    ``WORLD_SIZE=2`` without a launcher's ``RANK`` is an error; ``fsdp`` and
+    ``sequence`` train as no-ops (``sequence`` warns), the weights equal to
+    a run without them."""
     cfg = json.loads(_corpus(tmp_path).read_text())
     if section == "env":
         for k, v in override.items():
             monkeypatch.setenv(k, v)
-    elif section == "encoder":
-        cfg["model"]["encoder"].update(override)
     else:
         cfg.setdefault(section, {}).update(override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    key = next(iter(override))
+    if key in ("model", "pipeline_microbatches", "WORLD_SIZE"):
+        error, match = {"model": (ValueError, "not divisible by model=2"),
+                        "pipeline_microbatches": (NotImplementedError, "Q1.10b"),
+                        "WORLD_SIZE": (RuntimeError, "torch.distributed.run")}[key]
+        with pytest.raises(error, match=match):
+            ttrain.train_from_config(cfg, tmp_path / "run", device="cpu")
+        return
+    with caplog.at_level("WARNING", logger=ttrain.logger.name):
         ttrain.train_from_config(cfg, tmp_path / "run", device="cpu")
+    assert ("has no effect with parallel.model=1" in caplog.text) == (key == "sequence")
+    plain = json.loads((tmp_path / "config.json").read_text())
+    ttrain.train_from_config(plain, tmp_path / "plain", device="cpu")
+    got = load_checkpoint(tmp_path / "run" / "last")["state_dict"]
+    want = load_checkpoint(tmp_path / "plain" / "last")["state_dict"]
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in got)
