@@ -261,7 +261,42 @@ failing loudly:
              card the warning and log-probs equal to the same engine's
              without it, with more the rows split over the cards; text
              equal either way. ``chip_smoke.py --parallel-only`` runs the
-             build and phase 18 alone, for a machine with several cards.
+             build, phase 18 and phase 19c alone, for a machine with several
+             cards.
+19. worker pool and GPipe — (a) phase 7's corpus trained from raw EMG,
+             fused/pallas, one epoch with the shipped ``num_workers: 4`` and
+             with 0: losses and trained weights bit-equal (``torch.equal``),
+             the worker processes counted in the process table while it
+             trains (the train and val loaders' pools: 8) and none after;
+             the training loader alone at tpu_fast_plus B = 32 (256
+             utterances of one 768-frame bucket, cached features and raw
+             EMG, teacher on, page cache warm) at 0, 2, 4 and 8 workers in
+             batches/s and utt/s, beside the fused step's device time
+             (profiler) on one of its batches, with ``os.cpu_count()``. (b)
+             ``configs/tpu_scaled_large.yaml`` with ``conv_norm: layer`` and
+             ``pipeline_microbatches: 16`` (``scan_layers`` off, which the
+             pipeline excludes) at full width and depth, bf16, fused/pallas,
+             remat as shipped, on one card (no stages: the sequential
+             stack): trained steps finite, launches counted (the forward
+             kernels twice a step under remat), the step's device time
+             beside the same config unpipelined; its checkpoint served at
+             B = 8 with log-probs ``torch.equal`` to the same weights
+             unpipelined (``scan_layers``' fp32 carry, as shipped); phase
+             15e's 2-block card-vs-CPU bf16 step with the pipeline's keys;
+             ``pipeline.gpipe`` itself at one stage and M = 4 under
+             ``torchrun --nproc-per-node 1`` (NCCL), fp32 fused/pallas at
+             full width and 2 blocks, against the sequential stack within
+             phase 8's tolerances. (c) with two or more cards, the trainer
+             CLI under torchrun on tpu_scaled_large (conv_norm layer, fp32,
+             fused/pallas, dropout 0) with ``{model: 2,
+             pipeline_microbatches: 4}`` and, with four,
+             ``{model: 4, pipeline_microbatches: 16}`` and ``{data: 2,
+             model: 2, pipeline_microbatches: 4, fsdp: true}``, 4 steps of
+             B = 32 each against one card's ``train_from_config`` within
+             phase 18's tolerances, the last step's span beside one card's
+             and the bubble (M + S − 1)/M; then 2 stages twice with the
+             shipped dropout, bit-equal run to run; with one card it prints
+             ``{"phase": "19c", "skipped": ...}``.
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
@@ -2638,8 +2673,8 @@ def large_serving(root: Path, model, rng: np.random.Generator, card: str, steps:
     return {k: launches[k] + counted.total[k] for k in COUNTERS}
 
 
-def large_corpus(root: Path, rng: np.random.Generator) -> Path:
-    """64 train + 16 val raw-EMG utterances of one 768-frame bucket with
+def large_corpus(root: Path, rng: np.random.Generator, n_train: int = LARGE_TRAIN) -> Path:
+    """``n_train`` (64) train + 16 val raw-EMG utterances of one 768-frame bucket with
     WavLM-width teacher features, and the large config (parallel cut) with
     the corpus's paths as the run's JSON config; returns its path."""
     root.mkdir(parents=True, exist_ok=True)
@@ -2647,7 +2682,7 @@ def large_corpus(root: Path, rng: np.random.Generator) -> Path:
     default_vocab().to_json(vocab_path)
     chars = list("abcdefghijklmnopqrstuvwxyz") + [" "] * 6 + list("',.?")
     rows = []
-    for i in range(LARGE_TRAIN + LARGE_VAL):
+    for i in range(n_train + LARGE_VAL):
         uid = f"voiced_parallel_data/s1/{i}_0"
         n = int(rng.integers(*LARGE_SAMPLES))
         raw_path = root / "raw" / f"{i}_0_emg.npy"
@@ -2658,7 +2693,7 @@ def large_corpus(root: Path, rng: np.random.Generator) -> Path:
         np.save(tpath, rng.normal(size=(n // 20, TEACHER_DIM)).astype(np.float32))
         text = "".join(rng.choice(chars, size=int(rng.integers(30, 101))))
         rows.append(dict(utterance_id=uid, split="voiced_parallel_data",
-                         subset="train" if i < LARGE_TRAIN else "val", speaker="s1", stem=f"{i}_0",
+                         subset="train" if i < n_train else "val", speaker="s1", stem=f"{i}_0",
                          emg_path=str(raw_path), audio_path=None, transcript=text,
                          sentence_index=i, book="", has_audio=False, metadata_json="{}"))
     save_index(rows, root / "index.jsonl")
@@ -2839,17 +2874,19 @@ def large_remat_equal(model, rng: np.random.Generator) -> None:
           f"and dots bit-equal (torch.equal) to the step without remat on the card")
 
 
-def large_train_parity(rng: np.random.Generator) -> None:
+def large_train_parity(rng: np.random.Generator, enc=None, configs=(False, True),
+                       tag: str = "large-parity") -> None:
     """Phase 15e: one bf16 train step at full width (depth cut to
     ``LARGE_PARITY_BLOCKS`` blocks for the CPU) at B = 2 on the card and on
     the CPU from the same weights and batch (dropout 0): losses, and each
     gradient within twice the CPU's own bf16-vs-fp32 gap (+ 1 %) of its
-    largest fp32 value; both configurations."""
-    for fused in (False, True):
+    largest fp32 value; both configurations (``configs``: fused or not),
+    with ``enc`` over the encoder block (phase 19b: the pipeline's keys)."""
+    for fused in configs:
         name = "fused" if fused else "shipped"
         cfg = {"model": copy.deepcopy(large_config()["model"])}
         cfg["model"]["encoder"].update(num_layers=LARGE_PARITY_BLOCKS, dropout=0.0,
-                                       **(FUSED if fused else {}))
+                                       **(FUSED if fused else {}), **(enc or {}))
         cfg["model"]["ctc_dropout"] = 0.0
         cpu_model = build_model(cfg, input_dim=large_key("input_dim"), vocab_size=48)
         init_flax_style(cpu_model, torch.Generator().manual_seed(SEED))
@@ -2859,6 +2896,11 @@ def large_train_parity(rng: np.random.Generator) -> None:
         ref_model.load_state_dict(cpu_model.state_dict())
         gpu_model = copy.deepcopy(cpu_model).cuda()
         batch = large_batch(rng, LARGE_PARITY_B)
+        m = int(cfg["model"]["encoder"].get("pipeline_microbatches", 0))
+        if m:  # each data rank's rows a multiple of the microbatches, as the trainer pads
+            from ssd_tpu_torch.parallel.mesh import RowSplit
+
+            batch = RowSplit(microbatches=m).take(batch, LARGE_PARITY_B)
         featurize = feat.FeaturizerConfig.from_config(large_config())
         out = {}
         for label, model, dev in (("card", gpu_model, torch.device("cuda")),
@@ -2884,7 +2926,8 @@ def large_train_parity(rng: np.random.Generator) -> None:
                   f"large {name} grad {pname}: card vs CPU {gap:.3e} of the largest, the CPU's "
                   f"bf16-vs-fp32 gap {cpu_gap:.3e}")
             worst = max(worst, (gap, cpu_gap, pname))
-        print(f"[large-parity] {name}: one bf16 step at full width, {LARGE_PARITY_BLOCKS} blocks, "
+        print(f"[{tag}] {name}{' ' + str(enc) if enc else ''}: one bf16 step at full width, "
+              f"{LARGE_PARITY_BLOCKS} blocks, "
               f"B={LARGE_PARITY_B}, raw EMG: losses card {out['card']} vs CPU {out['cpu']} (rtol "
               f"{BF16_LOSS_RTOL}; CPU fp32 {out['cpu fp32']}); worst gradient gap card vs CPU "
               f"{worst[0]:.3e} of the largest ({worst[2]}; the CPU's bf16-vs-fp32 gap there "
@@ -3850,10 +3893,589 @@ def phase_multi(root: Path, fused_ckpt: Path, rng: np.random.Generator, card: st
     return {k: sum(part[k] for part in parts) for k in COUNTERS}
 
 
+# ---------------------------------------- worker pool and GPipe (phase 19)
+
+LOADER_UTTS = 256  # 8 batches of 32: every worker count up to 8 has a batch to build
+LOADER_FRAMES = (640, 769)  # cached lengths of one 768-frame bucket (raw: × hop 10)
+LOADER_WORKERS = (0, 2, 4, 8)
+LOADER_EPOCHS = 2  # steady epochs timed at each worker count, after a first one
+PIPE_M = 16  # tpu_scaled_large's documented pipeline block: {model: 4, pipeline_microbatches: 16}
+PIPE_ENC = {"conv_norm": "layer", "scan_layers": False, "pipeline_microbatches": PIPE_M}
+
+
+def loader_corpus(root: Path, rng: np.random.Generator) -> Path:
+    """``LOADER_UTTS`` voiced utterances of one 768-frame bucket: cached
+    log-mel features (T, 8, 80), WavLM-width teacher features (T / 2, 768)
+    and the raw EMG (10 T, 8) they stand for, all fp32; the shipped
+    tpu_fast_plus config at B = 32 with the corpus's paths. The values are
+    windows of one seeded normal draw (the loader's cost does not depend on
+    them)."""
+    root.mkdir(parents=True, exist_ok=True)
+    vocab_path = root / "vocab.json"
+    default_vocab().to_json(vocab_path)
+    base = rng.standard_normal(2 * LOADER_FRAMES[1] * 640 * 2, dtype=np.float32)
+    chars = list("abcdefghijklmnopqrstuvwxyz") + [" "] * 6
+    rows = []
+    for i in range(LOADER_UTTS):
+        uid = f"voiced_parallel_data/s1/{i}_0"
+        t = int(rng.integers(*LOADER_FRAMES))
+        off = int(rng.integers(0, base.size // 2))
+        arrays = {"emg": base[off:off + t * 640].reshape(t, CHANNELS, 80),
+                  "teacher": base[off:off + (t // 2) * TEACHER_DIM].reshape(t // 2, TEACHER_DIM)}
+        for kind, arr in arrays.items():
+            path = root / "features" / kind / f"{uid}.npy"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            np.save(path, arr)
+        raw_path = root / "raw" / f"{i}_0_emg.npy"
+        raw_path.parent.mkdir(parents=True, exist_ok=True)
+        np.save(raw_path, base[off:off + 10 * t * CHANNELS].reshape(10 * t, CHANNELS))
+        rows.append(dict(utterance_id=uid, split="voiced_parallel_data", subset="train",
+                         speaker="s1", stem=f"{i}_0", emg_path=str(raw_path), audio_path=None,
+                         transcript="".join(rng.choice(chars, size=int(rng.integers(30, 120)))),
+                         sentence_index=i, book="", has_audio=False, metadata_json="{}"))
+    save_index(rows, root / "index.jsonl")
+    cfg = copy.deepcopy(shipped_config())
+    cfg["data"].update(index=str(root / "index.jsonl"), features_root=str(root / "features"),
+                       vocab=str(vocab_path))
+    cfg["optim"]["batch_size"] = 32
+    path = root / "config.json"
+    path.write_text(json.dumps(cfg, indent=2))
+    return path
+
+
+def train_loader(cfg: dict, raw: bool, num_workers: int):
+    """The trainer's training loader for ``cfg`` (its augmentation split
+    between host and device as ``train_from_config`` splits it)."""
+    from ssd_tpu_torch.data.dataset import make_dataloader
+
+    spec_cfg, chan_cfg = trainer._augment_cfgs(cfg)
+    host_aug = not raw and not cfg.get("augmentation", {}).get("on_device", False)
+    fcfg = feat.FeaturizerConfig.from_config(cfg)
+    return make_dataloader(
+        index_path=Path(cfg["data"]["index"]), features_root=Path(cfg["data"]["features_root"]),
+        splits=cfg["data"]["train_splits"], subsets=cfg["data"].get("train_subsets"),
+        vocab=Vocab.from_json(Path(cfg["data"]["vocab"])), batch_size=cfg["optim"]["batch_size"],
+        seed=SEED, spec_augment_cfg=spec_cfg if host_aug else None,
+        channel_dropout_cfg=chan_cfg if host_aug else None, raw=raw,
+        raw_hop_length=fcfg.hop_length, num_workers=num_workers)
+
+
+def loader_rates(cfg: dict, raw: bool) -> tuple:
+    """Batches/s of the training loader alone through the trainer's
+    ``prefetch`` thread, at each worker count: a first epoch (the page
+    cache warmed, the pool started, its slots grown) and then
+    ``LOADER_EPOCHS`` steady ones. Returns {workers: (first, steady)} and
+    one batch (for the step)."""
+    from ssd_tpu_torch.data.dataset import prefetch
+
+    rates, first = {}, None
+    for n in LOADER_WORKERS:
+        loader = train_loader(cfg, raw, n)
+        try:
+            t0 = time.perf_counter()
+            for b in prefetch(loader):
+                first = first or {k: np.array(v)
+                                  for k, v in trainer.batch_to_arrays(b, True).items()}
+            cold = len(loader) / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            batches = sum(1 for _ in range(LOADER_EPOCHS) for _ in prefetch(loader))
+            rates[n] = (cold, batches / (time.perf_counter() - t0))
+        finally:
+            loader.close()
+    return rates, first
+
+
+def fused_step_ms(cfg: dict, arrays: dict, raw: bool) -> float:
+    """The profiler's device time of one fused/pallas train step of
+    tpu_fast_plus on the loader's batch (B = 32, 768 frames)."""
+    model = build_model(model_cfg(encoder_key("dropout"), **FUSED),
+                        input_dim=encoder_key("input_dim"), vocab_size=48)
+    init_flax_style(model, torch.Generator().manual_seed(SEED))
+    model.cuda()
+    opt, _ = build_optimizer(cfg, model.parameters(), 1000)
+    featurize = feat.FeaturizerConfig.from_config(cfg) if raw else None
+    step = trainer.make_train_step(BLANK, False, None, featurize)
+    state = trainer.TrainState(model=model, optimizer=opt)
+    batch = trainer.to_device(arrays, torch.device("cuda"))
+    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+
+    def run():
+        step(state, batch, LAMBDAS, gen)
+        torch.cuda.synchronize()
+
+    for _ in range(3):
+        run()
+    ms = sum(e.self_device_time_total for e in device_events(run)) / 1e3
+    del model, opt, state, batch
+    torch.cuda.empty_cache()
+    return ms
+
+
+class PoolWatch:
+    """Samples the process table while a run trains: the loader's workers,
+    forked by the fork server this process started (its grandchildren)."""
+
+    def __init__(self, every: float = 0.05) -> None:
+        import os
+
+        self.me, self.every, self.most = os.getpid(), every, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+
+    def workers(self) -> int:
+        import os
+
+        parent, cmd = {}, {}
+        for pid in os.listdir("/proc"):
+            if not pid.isdigit():
+                continue
+            try:
+                stat = Path(f"/proc/{pid}/stat").read_text()
+                parent[int(pid)] = int(stat[stat.rindex(")") + 2:].split()[1])
+                cmd[int(pid)] = Path(f"/proc/{pid}/cmdline").read_bytes()
+            except (OSError, ValueError, IndexError):
+                continue
+        servers = {p for p, pp in parent.items() if pp == self.me and b"forkserver" in cmd[p]}
+        return sum(1 for pp in parent.values() if pp in servers)
+
+    def _watch(self) -> None:
+        while not self._stop.is_set():
+            self.most = max(self.most, self.workers())
+            time.sleep(self.every)
+
+    def __enter__(self) -> "PoolWatch":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def workers_train(root: Path, card: str) -> dict:
+    """Phase 19a: phase 7's corpus trained from raw EMG, fused/pallas, one
+    epoch with the shipped ``data.num_workers: 4`` and with 0: every logged
+    loss and trained weight bit-equal, the workers seen in the process
+    table while it trains, none after."""
+    import os
+
+    base = load_config(root / "config.json")
+    base["model"]["encoder"].update(FUSED)
+    base["data"]["train_from_raw"] = True
+    base["optim"]["max_epochs"] = 1
+    shipped = int(base["optim"]["num_workers"])
+    runs, watch = {}, None
+    total = dict.fromkeys(COUNTERS, 0)
+    for n in (shipped, 0):
+        cfg = copy.deepcopy(base)
+        cfg["data"]["num_workers"] = n
+        t0 = time.perf_counter()
+        reset_counts()
+        with PoolWatch() as w:
+            summary = trainer.train_from_config(cfg, root / f"workers_{n}", device="cuda")
+        c = counts()
+        for k in total:
+            total[k] += c[k]
+        h = summary["history"][0]
+        h["train"].pop("utterances_per_sec_per_chip")
+        runs[n] = (summary["history"], load_checkpoint(root / f"workers_{n}" / "last"),
+                   time.perf_counter() - t0, w.most, c)
+        if n:
+            watch = w
+    hist_w, ck_w, s_w, most, c_w = runs[shipped]
+    hist_0, ck_0, s_0, most_0, _ = runs[0]
+    check(hist_w == hist_0, f"19a: losses with {shipped} workers {hist_w} vs in-process {hist_0}")
+    bad = [k for k, v in ck_0["state_dict"].items() if not torch.equal(ck_w["state_dict"][k], v)]
+    check(not bad, f"19a: {len(bad)} trained weights differ with workers, e.g. {bad[:3]}")
+    check(most == 2 * shipped and most_0 == 0,
+          f"19a: {most} workers seen with num_workers {shipped} (train + val loaders: "
+          f"{2 * shipped} expected), {most_0} at 0")
+    check(watch.workers() == 0, "19a: worker processes outlived the trainer")
+    n_train, n_eval = hist_w[0]["train"]["batches"], hist_w[0]["val"]["batches"]
+    check(all(c_w[k] > 0 for k in ("logmel", "ctc_alpha", "ctc_beta", "attention_fwd",
+                                   "attention_bwd", "depthwise_fwd", "depthwise_bwd")),
+          f"19a: the worker-fed run launched {c_w}")
+    print(f"[workers] 19a phase 7's corpus from raw EMG, fused/pallas, 1 epoch ({n_train} train "
+          f"+ {n_eval} eval steps of B={base['optim']['batch_size']}): data.num_workers "
+          f"{shipped} vs 0: losses and all trained weights bit-equal (torch.equal); {most} worker "
+          f"processes seen in the process table while it trained (train + val loaders, "
+          f"os.cpu_count() {os.cpu_count()}), 0 after; {s_w:.2f} s vs {s_0:.2f} s; launches "
+          f"{ {k: v for k, v in c_w.items() if v} }; card {card}")
+    return total
+
+
+def workers_rates(root: Path, rng: np.random.Generator, card: str) -> None:
+    """Phase 19a: the loader alone at B = 32 (cached features of 768
+    frames, and raw EMG) at 0, 2, 4 and 8 workers, beside the fused
+    tpu_fast_plus step's device time on the same batch."""
+    import os
+
+    t0 = time.perf_counter()
+    cfg = load_config(loader_corpus(root, rng))
+    made = time.perf_counter() - t0
+    B = cfg["optim"]["batch_size"]
+    for raw in (False, True):
+        mode = "raw EMG" if raw else "cached features"
+        rates, arrays = loader_rates(cfg, raw)
+        step_ms = fused_step_ms(cfg, arrays, raw)
+        step_rate = 1e3 / step_ms
+        best = max(r for _, r in rates.values())
+        pace = "the loader" if best < step_rate else "the step"
+        print(f"[workers] 19a loader alone, tpu_fast_plus B={B}, {mode} (768-frame bucket, "
+              f"{LOADER_UTTS} utterances, fp32, teacher on, page cache warm), through the "
+              f"trainer's prefetch thread, {LOADER_EPOCHS} steady epochs after a first one "
+              f"(first in brackets): "
+              + ", ".join(f"{n} workers {r:.3f} batches/s = {r * B:.1f} utt/s ({c:.3f})"
+                          for n, (c, r) in rates.items())
+              + f"; the fused step's device time on its batch {step_ms:.3f} ms = "
+              f"{step_rate:.3f} steps/s = {step_rate * B:.1f} utt/s: {pace} sets the pace "
+              f"(host os.cpu_count() {os.cpu_count()}); card {card}")
+    print(f"[workers] 19a corpus written in {made:.2f} s")
+
+
+def pipe_cfg(dtype: str = "bfloat16", **enc) -> dict:
+    """tpu_scaled_large (full width and depth unless ``enc`` cuts it),
+    fused/pallas, with ``conv_norm: layer`` and the pipeline block's
+    microbatches (``scan_layers`` off: the pipeline excludes it)."""
+    cfg = copy.deepcopy(large_config())
+    cfg["model"]["encoder"].update(compute_dtype=dtype, **FUSED, **PIPE_ENC)
+    cfg["model"]["encoder"].update(enc)
+    return cfg
+
+
+def pipe_step(cfg: dict, batch: dict, steps: int = 1) -> tuple:
+    """``steps`` of the trainer's step on one card for ``cfg`` (each data
+    rank's rows padded to the microbatches as the trainer pads them): the
+    losses and the profiler's device time of the last step."""
+    from ssd_tpu_torch.parallel.mesh import RowSplit
+
+    model = build_model(cfg, input_dim=large_key("input_dim"), vocab_size=48)
+    init_flax_style(model, torch.Generator().manual_seed(SEED))
+    model.cuda()
+    opt, _ = build_optimizer(cfg, model.parameters(), 1000)
+    m = int(cfg["model"]["encoder"].get("pipeline_microbatches", 0))
+    rows = RowSplit(microbatches=max(1, m)).take(batch, batch["emg"].shape[0])
+    dev_batch = trainer.to_device(rows, torch.device("cuda"))
+    featurize = feat.FeaturizerConfig.from_config(cfg)
+    step = trainer.make_train_step(BLANK, False, None, featurize)
+    state = trainer.TrainState(model=model, optimizer=opt)
+    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+    losses = []
+
+    def run():
+        _, out = step(state, dev_batch, LAMBDAS, gen)
+        losses.append({k: float(v) for k, v in out.items()})
+
+    for _ in range(steps):
+        run()
+    ms = sum(e.self_device_time_total for e in device_events(run)) / 1e3
+    del model, opt, state, dev_batch
+    torch.cuda.empty_cache()
+    return losses, ms
+
+
+def pipe_large(root: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 19b: tpu_scaled_large with ``conv_norm: layer`` and
+    ``pipeline_microbatches: 16`` on one card (no stages: the sequential
+    stack), full width and depth, bf16, fused/pallas, remat as shipped:
+    trained steps that are finite, launches counted, the step's device time
+    beside the same config unpipelined; served log-probs equal to the same
+    weights unpipelined (``scan_layers``' fp32 carry, as shipped); the
+    2-block card-vs-CPU step of phase 15e with the pipeline's keys."""
+    L = large_key("num_layers")
+    t0 = time.perf_counter()
+    cfg = pipe_cfg()
+    batch = large_batch(rng, LARGE_TRAIN_SHAPE[0])
+    reset_counts()
+    losses, ms = pipe_step(cfg, batch, steps=2)
+    c = counts()
+    check(all(np.isfinite(v) for l in losses for v in l.values()), f"19b losses {losses}")
+    # remat recomputes each block's forward in the backward; 4 steps ran
+    # (2, warm-up and profiled)
+    n = len(losses)
+    want = {"attention_fwd_bf16": 2 * L * n, "depthwise_fwd_bf16": 2 * L * n,
+            "attention_bwd_bf16": L * n, "depthwise_bwd_bf16": L * n, "logmel": n,
+            "ctc_alpha": n, "ctc_beta": n}
+    check(all(c[k] == v for k, v in want.items()), f"19b launched {c}, expected {want}")
+    plain = pipe_cfg(conv_norm="layer", scan_layers=True, pipeline_microbatches=0)
+    plain_losses, plain_ms = pipe_step(plain, batch, steps=2)
+    print(f"[pipeline] 19b tpu_scaled_large, conv_norm layer, pipeline_microbatches {PIPE_M}, "
+          f"{L} blocks, d_model {large_key('d_model')}, bf16, fused/pallas, remat, B="
+          f"{LARGE_TRAIN_SHAPE[0]} raw EMG, one card (the sequential stack): losses {losses}; "
+          f"step device time (profiler) {ms:.3f} ms vs {plain_ms:.3f} ms unpipelined "
+          f"(scan_layers, losses {plain_losses}); launches {c}; "
+          f"{time.perf_counter() - t0:.2f} s; card {card}")
+    totals = dict(c)
+
+    t0 = time.perf_counter()
+    model = large_model(**{k: v for k, v in PIPE_ENC.items()}, **FUSED)
+    with torch.no_grad():
+        model.ctc_head.fc.weight.mul_(10.0)
+    served = {}
+    for label, enc in (("pipelined", dict(PIPE_ENC, **FUSED)),
+                       ("unpipelined", dict(conv_norm="layer", **FUSED))):
+        ckpt = large_run_dir(root / f"pipe_{label}", model, **enc)
+        engine = InferenceEngine.from_checkpoint(ckpt, device="cuda")
+        reset_counts()
+        served[label] = engine.forward(requests(np.random.default_rng(SEED), 8))
+        c = counts()
+        if label == "pipelined":
+            for k in totals:
+                totals[k] += c[k]
+        del engine
+    (lp, ol), (lp0, ol0) = served["pipelined"], served["unpipelined"]
+    check(torch.equal(ol, ol0) and torch.equal(lp, lp0),
+          "19b: served log-probs pipelined vs unpipelined differ")
+    print(f"[pipeline] 19b the pipelined checkpoint served (B=8): log-probs torch.equal to the "
+          f"same weights unpipelined (scan_layers' fp32 carry); launches {c}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    large_train_parity(rng, enc=dict(PIPE_ENC, pipeline_microbatches=LARGE_PARITY_B),
+                       configs=(True,), tag="19b pipelined")
+    print(f"[pipeline] 19b card-vs-CPU step {time.perf_counter() - t0:.2f} s")
+    return totals
+
+
+PIPE_SCHED = dict(blocks=2, B=4, M=4, T=384)  # the world-1 schedule check
+
+
+def rank_pipe(spec_path: str) -> int:
+    """Phase 19b's world-1 rank: ``pipeline.gpipe`` at one stage and M = 4
+    over an NCCL group of one, against ``sequential_stack`` on the same
+    blocks, input and output gradient (fp32, fused/pallas, full width, 2
+    blocks): outputs, input and parameter gradients."""
+    import torch.distributed as dist
+
+    from ssd_tpu_torch.parallel import pipeline as pp
+    from ssd_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize_distributed(device="cuda")
+    try:
+        cfg = pipe_cfg("float32", num_layers=PIPE_SCHED["blocks"], dropout=0.0,
+                       pipeline_microbatches=PIPE_SCHED["M"])
+        model = build_model(cfg, input_dim=large_key("input_dim"), vocab_size=48)
+        init_flax_style(model, torch.Generator().manual_seed(SEED))
+        model.cuda()
+        enc = model.encoder
+        g = torch.Generator().manual_seed(SEED)
+        B, T, D = PIPE_SCHED["B"], PIPE_SCHED["T"], large_key("d_model")
+        x = torch.randn(B, T, D, generator=g).cuda()
+        gy = torch.randn(B, T, D, generator=g).cuda()
+        lengths = torch.tensor([T, T - 50, T - 120, 40])
+        mask = (torch.arange(T)[None] < lengths[:, None]).cuda()
+        out = {}
+        reset_counts()
+        for label in ("sequential", "gpipe"):
+            model.zero_grad()
+            xi = x.clone().requires_grad_(True)
+            if label == "gpipe":
+                y = pp.gpipe(enc.cfg, enc.blocks, xi, mask, True, None, PIPE_SCHED["M"],
+                             dist.group.WORLD)
+            else:
+                y = pp.sequential_stack(enc.cfg, enc.blocks, xi, mask, True, None)
+            y.backward(gy)
+            out[label] = {"y": y.detach().cpu(), "gx": xi.grad.cpu(),
+                          "grads": {n: p.grad.cpu() for n, p in enc.blocks.named_parameters()}}
+        out.update(backend=dist.get_backend(), world=dist.get_world_size(), counts=counts())
+        torch.save(out, spec["out"])
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def pipe_schedule(root: Path, card: str) -> dict:
+    """Phase 19b: the schedule's own function under ``torchrun
+    --nproc-per-node 1`` (NCCL), at one stage and M = 4, against the
+    sequential stack within phase 8's fp32 tolerances."""
+    t0 = time.perf_counter()
+    spec = root / "pipe_rank_spec.json"
+    spec.write_text(json.dumps({"out": str(root / "pipe_rank.pt")}))
+    torchrun(1, "--rank-pipe", str(spec))
+    got = torch.load(root / "pipe_rank.pt", weights_only=False)
+    check(got["backend"] == "nccl" and got["world"] == 1, f"19b: {got['backend']} {got['world']}")
+    a, b = got["gpipe"], got["sequential"]
+    scale = float(b["y"].abs().max())
+    err = float((a["y"] - b["y"]).abs().max())
+    check(err <= TRAIN_LOSS_RTOL * scale, f"19b gpipe output {err} vs {scale}")
+    worst = (float((a["gx"] - b["gx"]).abs().max()) / float(b["gx"].abs().max()), "input")
+    check(worst[0] <= TRAIN_GRAD_REL, f"19b gpipe input gradient {worst}")
+    noise = 0.0  # the key bias: its true gradient is 0 (softmax is shift invariant)
+    for n, w in b["grads"].items():
+        e = float((a["grads"][n] - w).abs().max())
+        if n.endswith(".attn.mha.key.bias"):
+            noise = max(noise, e)
+            continue
+        bound = max(TRAIN_GRAD_REL * float(w.abs().max()), TRAIN_GRAD_FLOOR)
+        check(e <= bound, f"19b gpipe grad {n}: {e} > {bound}")
+        if bound > TRAIN_GRAD_FLOOR:
+            worst = max(worst, (e / float(w.abs().max()), n))
+    c = got["counts"]
+    check(all(c[k] > 0 for k in ("attention_fwd", "attention_bwd", "depthwise_fwd",
+                                 "depthwise_bwd")), f"19b: the schedule's rank launched {c}")
+    print(f"[pipeline] 19b pipeline.gpipe at 1 stage, M={PIPE_SCHED['M']}, under torchrun "
+          f"--nproc-per-node 1 over {got['backend']}, fp32 fused/pallas, d_model "
+          f"{large_key('d_model')}, {PIPE_SCHED['blocks']} blocks, B={PIPE_SCHED['B']}, "
+          f"T'={PIPE_SCHED['T']}: output within {err / scale:.3e} of its largest (rtol "
+          f"{TRAIN_LOSS_RTOL}), worst gradient {worst[0]:.3e} of its largest ({worst[1]}; limit "
+          f"{TRAIN_GRAD_REL}) vs the sequential stack, the key bias's rounding noise {noise:.3e}; "
+          f"launches {c}; "
+          f"{time.perf_counter() - t0:.2f} s; card {card}")
+    return c
+
+
+PIPE_STEPS = 4  # 19c's train steps: step 1 cold, step 2 profiled, the last timed warm
+PIPE_MULTI = (  # (cards needed, parallel: block)
+    (2, {"model": 2, "pipeline_microbatches": 4}),
+    (4, {"model": 4, "pipeline_microbatches": PIPE_M}),
+    (4, {"data": 2, "model": 2, "pipeline_microbatches": 4, "fsdp": True}),
+)
+
+
+def pipe_multi(root: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 19c: with two or more cards, the trainer CLI under torchrun on
+    tpu_scaled_large (conv_norm layer, fp32, fused/pallas, dropout 0,
+    augmentation off) with each ``parallel:`` block of ``PIPE_MULTI`` the
+    cards allow, against one card's ``train_from_config`` from the same
+    seed within phase 18's tolerances; with one card a skip line."""
+    n = torch.cuda.device_count()
+    total = dict.fromkeys(COUNTERS, 0)
+    if n < 2:
+        print(json.dumps({"phase": "19c", "skipped": f"{n} CUDA device visible"}))
+        return total
+    cfg_path = large_corpus(root / "pipe_corpus", rng, n_train=PIPE_STEPS * 32)
+    base = load_config(cfg_path)
+    base["model"]["encoder"].update(compute_dtype="float32", dropout=0.0, **FUSED, **PIPE_ENC)
+    base["model"]["ctc_dropout"] = 0.0
+    base["data"].update(teacher_dtype="float32")
+    base["augmentation"] = {}
+    base["optim"]["max_epochs"] = 1
+    L = large_key("num_layers")
+    # one card runs the blocks in order whatever M is (B = 32 needs no
+    # padding for any block below): one reference serves every block
+    t0 = time.perf_counter()
+    rec = StepRecorder()
+    with rec.patch():
+        trainer.train_from_config(copy.deepcopy(base), root / "pipe_one",
+                                  overfit_batches=PIPE_STEPS,
+                                  device="cuda")
+    want = rec.result()
+    w_want = load_checkpoint(root / "pipe_one" / "last")
+    print(f"[pipeline] 19c one card: {time.perf_counter() - t0:.2f} s")
+    for need, par in PIPE_MULTI:
+        if n < need:
+            continue
+        t0 = time.perf_counter()
+        label = "_".join(f"{k}{v}" for k, v in par.items())
+        cfg = copy.deepcopy(base)
+        cfg["parallel"] = dict(par)
+        cfg_file = root / f"pipe_{label}.json"
+        cfg_file.write_text(json.dumps(cfg))
+        out = root / f"pipe_{label}"
+        spec = root / f"pipe_{label}_spec.json"
+        spec.write_text(json.dumps({"out": str(out), "argv": [
+            "--config", str(cfg_file), "--run-dir", str(root / f"pipe_ranks_{label}"),
+            "--overfit-batches", str(PIPE_STEPS)]}))
+        torchrun(need, "--rank-train", str(spec))
+        ranks = [json.loads(Path(f"{out}.rank{r}.json").read_text()) for r in range(need)]
+        got = ranks[0]
+        check(all(r["backend"] == "nccl" and r["world"] == need for r in ranks),
+              f"19c {label}: {[r['backend'] for r in ranks]}")
+        check(all(r["losses"] == got["losses"] for r in ranks),
+              f"19c {label}: the ranks report different losses")
+        for a, b in zip(got["losses"], want["losses"]):
+            for k in ("total", "ctc", "distill"):
+                check(abs(a[k] - b[k]) <= TRAIN_LOSS_RTOL * abs(b[k]),
+                      f"19c {label}: {k} loss {a[k]} vs one card {b[k]}")
+        w_got = load_checkpoint(root / f"pipe_ranks_{label}" / "last")
+        bad, gap, means = weights_gap(w_got["state_dict"], w_want["state_dict"])
+        check(gap <= MULTI_WEIGHT_ATOL, f"19c {label}: weights off by {gap}")
+        stages = par["model"]
+        missing = [(r["rank"], k) for r in ranks for k in ("attention_fwd", "attention_bwd",
+                                                           "depthwise_fwd", "depthwise_bwd")
+                   if r["counts"][k] == 0]
+        check(not missing, f"19c {label}: a stage never launched {missing}")
+        per_stage = [r["counts"]["attention_bwd"] for r in ranks]
+        for k in total:
+            total[k] += sum(r["counts"][k] for r in ranks)
+        m = par["pipeline_microbatches"]
+        print(f"[pipeline] 19c trainer CLI, torchrun --nproc-per-node {need}, parallel {par}: "
+              f"tpu_scaled_large fp32 fused/pallas, {L} blocks over {stages} stages, dropout 0, "
+              f"{PIPE_STEPS} steps of B={base['optim']['batch_size']}: losses "
+              f"{[round(l['total'], 6) for l in got['losses']]} vs one card "
+              f"{[round(l['total'], 6) for l in want['losses']]} (rtol {TRAIN_LOSS_RTOL}); "
+              f"{len(bad)} tensors not bit-equal, worst {gap:.3e} (atol {MULTI_WEIGHT_ATOL}); "
+              f"step {PIPE_STEPS}'s span (CUDA events) by rank "
+              f"{[round(r['step_ms'][-1], 3) for r in ranks]} "
+              f"ms vs {want['step_ms'][-1]:.3f} ms one card (x"
+              f"{got['step_ms'][-1] / want['step_ms'][-1]:.3f}; the GPipe bubble alone "
+              f"(M+S-1)/M = {(m + stages - 1) / m:.4f}); device busy by rank "
+              f"{[round(r['busy_ms'], 3) for r in ranks]} ms vs {want['busy_ms']:.3f} ms; "
+              f"attention backward launches by rank {per_stage}; "
+              f"{time.perf_counter() - t0:.2f} s; card {card}")
+    # dropout on (the shipped rates), twice from one seed over 2 stages
+    t0 = time.perf_counter()
+    need, par = PIPE_MULTI[0]
+    runs = []
+    for run in ("a", "b"):
+        cfg = copy.deepcopy(base)
+        cfg["model"]["encoder"]["dropout"] = large_key("dropout")
+        cfg["model"]["ctc_dropout"] = large_config()["model"]["ctc_dropout"]
+        cfg["parallel"] = dict(par)
+        cfg_file = root / f"pipe_dropout_{run}.json"
+        cfg_file.write_text(json.dumps(cfg))
+        out = root / f"pipe_dropout_{run}"
+        spec = root / f"pipe_dropout_{run}_spec.json"
+        spec.write_text(json.dumps({"out": str(out), "argv": [
+            "--config", str(cfg_file), "--run-dir", str(root / f"pipe_dropout_ranks_{run}"),
+            "--overfit-batches", str(PIPE_STEPS)]}))
+        torchrun(need, "--rank-train", str(spec))
+        rank0 = json.loads(Path(f"{out}.rank0.json").read_text())
+        runs.append((rank0["losses"],
+                     load_checkpoint(root / f"pipe_dropout_ranks_{run}" / "last")["state_dict"]))
+    (la, wa), (lb, wb) = runs
+    check(la == lb and all(np.isfinite(l[k]) for l in la for k in l),
+          f"19c dropout: losses {la} vs {lb}")
+    bad = [k for k in wa if not torch.equal(wa[k], wb[k])]
+    check(not bad, f"19c dropout: {len(bad)} trained weights differ run to run, e.g. {bad[:3]}")
+    print(f"[pipeline] 19c trainer CLI over {need} cards, parallel {par}, dropout "
+          f"{large_key('dropout')}: two runs from one seed bit-equal (losses "
+          f"{[round(l['total'], 6) for l in la]}, every trained weight torch.equal); "
+          f"{time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def phase_pipeline_workers(root: Path, train_dir: Path, rng: np.random.Generator,
+                           card: str) -> dict:
+    """Phase 19: the loader's worker pool (a) and the GPipe schedule (b, c)."""
+    root.mkdir(parents=True, exist_ok=True)
+    steps, total = {}, dict.fromkeys(COUNTERS, 0)
+
+    def add(part):
+        for k in total:
+            total[k] += part[k]
+
+    for name, fn, args in (("19a train", workers_train, (train_dir, card)),
+                           ("19a rates", workers_rates, (root / "loader", rng, card)),
+                           ("19b large", pipe_large, (root, rng, card)),
+                           ("19b schedule", pipe_schedule, (root, card)),
+                           ("19c", pipe_multi, (root, rng, card))):
+        t0 = time.perf_counter()
+        part = fn(*args)
+        steps[name] = time.perf_counter() - t0
+        if part:
+            add(part)
+    print("[pipeline] phase 19 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    return total
+
+
 def parallel_only() -> int:
-    """``chip_smoke.py --parallel-only``: the kernels' build and phase 18
-    alone (its corpus and checkpoint made as phases 7 and 11 make them), for
-    a machine with several cards."""
+    """``chip_smoke.py --parallel-only``: the kernels' build, phase 18 and
+    phase 19c alone (the corpora and checkpoint made as phases 7, 11 and 15
+    make them), for a machine with several cards."""
     card = phase_build()
     rng = np.random.default_rng(SEED)
     root = Path(tempfile.mkdtemp(prefix="ssd_chip_smoke_parallel_"))
@@ -3865,6 +4487,9 @@ def parallel_only() -> int:
         ckpt = build_run_dir(root / "fused", **FUSED)
         multi = phase_multi(train_dir, ckpt, rng, card)
         print(f"[time] parallelism {time.perf_counter() - t0:.2f} s; launches {multi}")
+        t0 = time.perf_counter()
+        piped = pipe_multi(root / "pipe", rng, card)
+        print(f"[time] pipeline over cards {time.perf_counter() - t0:.2f} s; launches {piped}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(card)
@@ -3875,9 +4500,10 @@ def parallel_only() -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--rank-train", "--rank-step"):
-        # a rank of phase 18, started by torch.distributed.run
-        return (rank_train if sys.argv[1] == "--rank-train" else rank_step)(sys.argv[2])
+    ranks = {"--rank-train": rank_train, "--rank-step": rank_step, "--rank-pipe": rank_pipe}
+    if len(sys.argv) == 3 and sys.argv[1] in ranks:
+        # a rank of phase 18 or 19, started by torch.distributed.run
+        return ranks[sys.argv[1]](sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -3924,25 +4550,31 @@ def main() -> int:
         prepared = timed("data preparation", phase_prepare, run_dir / "prep", rng, card)
         multi = timed("parallelism", phase_multi, train_dir, run_dir / "fused" / "last", rng,
                       card)
+        piped = timed("workers+pipeline", phase_pipeline_workers, run_dir / "pipe", train_dir,
+                      rng, card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     entry["launches"] += (evaluated["logmel"] + lm_served["logmel"] + streamed["logmel"]
-                          + quantized["logmel"] + prepared["logmel"] + multi["logmel"])
+                          + quantized["logmel"] + prepared["logmel"] + multi["logmel"]
+                          + piped["logmel"])
     kernels = [entry]
     for name in ("alpha", "beta"):
         e = ctc_out["entries"][name]
         e["launches"] = (train_counts[f"ctc_{name}"] + prepared[f"ctc_{name}"]
-                         + multi[f"ctc_{name}"])
+                         + multi[f"ctc_{name}"] + piped[f"ctc_{name}"])
         kernels.append(e)
     for name in ("attention_fwd", "attention_bwd", "depthwise_fwd", "depthwise_bwd"):
         e = new_out["entries"][name]
-        # phase 11's two counted runs, phase 12's, 13's, 14's, 16's, 17's and
-        # 18's (every rank of its distributed trainer)
+        # phase 11's two counted runs, phase 12's, 13's, 14's, 16's, 17's,
+        # 18's (every rank of its distributed trainer) and 19's
         e["launches"] = (served[name] + trained[name] + evaluated[name] + lm_served[name]
-                         + streamed[name] + quantized[name] + prepared[name] + multi[name])
+                         + streamed[name] + quantized[name] + prepared[name] + multi[name]
+                         + piped[name])
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
     check(quantized["int_mm"] > 0, "torch._int_mm was never launched on the quantized path")
+    for name, e in large.items():
+        e["launches"] += piped[name]  # phase 19b's pipelined bf16 runs
     kernels += list(large.values())
     print(f"[time] total {sum(seconds.values()):.2f} s")
     print(json.dumps({"kernels": kernels}))

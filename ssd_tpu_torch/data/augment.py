@@ -15,7 +15,9 @@ train step): each function draws its random numbers from a
 (``_spec_augment_from_uniforms``, ``_channel_dropout_from_uniforms``), the
 arithmetic of ``spec_augment_jax`` / ``channel_dropout_jax``. The two
 frameworks' generators differ, so a test feeds the JAX draws to the pure
-functions and compares exactly.
+functions and compares exactly. torch is imported inside the torch
+functions: the host loader's worker processes import this module and need
+numpy only.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
-import torch
 
 
 @dataclass(frozen=True)
@@ -96,6 +97,8 @@ def spec_augment(
 ) -> torch.Tensor:
     """Vectorized on-device SpecAugment for a padded (B, T, F) batch; the
     time-mask width scales with each sample's valid length."""
+    import torch
+
     if cfg.p <= 0:
         return feats
     B, dev = feats.shape[0], feats.device
@@ -106,6 +109,8 @@ def spec_augment(
 
 
 def _spec_augment_from_uniforms(feats, lengths, cfg, u_apply, u_t, u_f) -> torch.Tensor:
+    import torch
+
     B, T, F = feats.shape
     dev = feats.device
     apply = u_apply < cfg.p
@@ -135,6 +140,8 @@ def channel_dropout(
     feats: torch.Tensor, cfg: ChannelDropoutConfig, generator: Optional[torch.Generator]
 ) -> torch.Tensor:
     """Vectorized channel dropout for a (B, T, C, M) batch."""
+    import torch
+
     if cfg.p <= 0:
         return feats
     B, _, C, _ = feats.shape
@@ -149,6 +156,8 @@ def channel_dropout(
 
 
 def _channel_dropout_from_uniforms(feats, cfg, u_apply, drop_n, scores) -> torch.Tensor:
+    import torch
+
     apply = u_apply < cfg.p
     # rank channels by random score; drop the first drop_n
     ranks = torch.argsort(torch.argsort(scores, dim=1), dim=1)

@@ -1,5 +1,5 @@
 """Host-side dataset + bucketed static-shape batching (the port's own copy of
-``ssd_tpu/data/dataset.py``, single process).
+``ssd_tpu/data/dataset.py``).
 
 * split/subset selection, transcript normalization with empty-row dropping
   at construction, strict vs lenient teacher loading;
@@ -16,9 +16,25 @@
   no ``ml_dtypes``) — half the host copy and host→device bytes.
 
 Given the same index and seed, the batches equal the JAX loader's bit for
-bit (``tests/test_torch_data.py``). The loader runs in-process, fed to the
-step by the :func:`prefetch` thread; the JAX package's worker-process pool
-is not ported (``ROADMAP.md`` Q1.15).
+bit (``tests/test_torch_data.py``). With ``num_workers`` 0 the loader runs
+in-process, fed to the step by the :func:`prefetch` thread. With
+``num_workers > 0`` a pool of that many worker processes builds the batches
+(the JAX loader's pool). The parent may hold a CUDA context, and CUDA is
+not fork-safe, so the workers are never forked from it: the
+``forkserver`` context forks them from a server process started fresh
+(once per parent; it never touches CUDA). A worker needs only this module,
+so the pool starts with the parent's ``__main__`` hidden
+(:func:`_main_hidden`): otherwise each worker would import ``__main__``
+again, as ``spawn`` does — a trainer's pulls in torch and every model, ~3 s
+of CPU a worker on an 8-core H100 host. Each worker copies its batch into
+a shared-memory slot (``data/shm_slots.py``) and the parent reads it as
+zero-copy views. Batches arrive in order and equal the in-process loader's
+bit for bit (the augmentation RNG is derived per (seed, epoch, batch));
+at most ``num_workers + 2`` are in flight; an abandoned iteration recycles
+its slots; ``close()`` during an iteration raises instead of hanging. The
+module imports numpy only (``data/augment.py`` imports torch inside the
+functions that use it), so a worker holds torch only where the parent's
+``__main__`` imports it, never JAX, and never starts CUDA.
 
 ``num_shards`` / ``shard_index`` are the JAX loader's multi-host contract:
 global batches of ``batch_size × num_shards`` rows cut from one seeded
@@ -31,8 +47,10 @@ host, as in the JAX package) and splits a node's batch over its ranks.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import queue
+import sys
 import threading
 from dataclasses import dataclass
 from pathlib import Path
@@ -293,7 +311,9 @@ class DataLoader:
     Each epoch, items are shuffled, stably sorted by bucketed length, cut
     into batches, and the batch order shuffled again — randomness with
     near-uniform batch shapes. Without shuffling (eval), items keep index
-    order and batches are cut sequentially.
+    order and batches are cut sequentially. ``num_workers > 0`` builds the
+    batches in that many worker processes (module docstring); call
+    :meth:`close` to stop them (garbage collection does too).
     """
 
     def __init__(
@@ -309,6 +329,7 @@ class DataLoader:
         emg_dtype: str = "float32",
         num_shards: int = 1,
         shard_index: int = 0,
+        num_workers: int = 0,
     ) -> None:
         self.dataset = dataset
         self.num_shards = int(num_shards)
@@ -322,6 +343,9 @@ class DataLoader:
         self.time_bucket = time_bucket
         self.teacher_dtype = teacher_dtype
         self.emg_dtype = emg_dtype
+        self.num_workers = int(num_workers)
+        self._pool = None
+        self._slots = None  # the shared-memory transport, made with the pool
         self.epoch = 0
         indices = list(range(len(dataset)))
         if max_items is not None:
@@ -402,12 +426,166 @@ class DataLoader:
         batch.transcripts = []
         return batch
 
+    # --------------------------------------------------- worker processes
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        d["_pool"] = None  # a pool does not pickle; workers start no pool
+        d["_slots"] = None  # the parent's maps; workers get the slot paths
+        return d
+
+    def _ensure_pool(self):
+        if self._pool is None:
+            import multiprocessing as mp
+
+            from ssd_tpu_torch.data.shm_slots import SlotPool
+
+            # the in-flight bound (num_workers + 2, _iter_workers) and room
+            # for yielded batches the consumer still holds (the prefetch
+            # queue, the step's batch)
+            self._slots = SlotPool(self.num_workers + 6)
+            with _main_hidden():
+                self._pool = mp.get_context("forkserver").Pool(
+                    self.num_workers, initializer=_worker_init,
+                    initargs=(self, self._slots.paths))
+        return self._pool
+
+    def close(self) -> None:
+        """Stop the worker processes and remove the slots (idempotent)."""
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+        if self._slots is not None:
+            self._slots.close()
+            self._slots = None
+
+    def __del__(self):  # pragma: no cover - GC timing
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _await(self, async_result):
+        """``AsyncResult.get`` that raises, instead of blocking for ever, once
+        :meth:`close` has terminated the pool."""
+        import multiprocessing as mp
+
+        while True:
+            try:
+                return async_result.get(0.5)
+            except mp.TimeoutError:
+                if self._pool is None:
+                    raise RuntimeError("DataLoader.close() was called during iteration") from None
+
+    def _iter_workers(self, epoch: int, batches: List[List[int]]) -> Iterator[Batch]:
+        """The epoch's batches from the pool, in order, at most
+        ``num_workers + 2`` in flight. Submitting waits for a free slot, so
+        the workers run ahead of the consumer by the slots it has let go.
+        An abandoned iteration waits out its submitted builds and recycles
+        their slots."""
+        from collections import deque
+
+        pool = self._ensure_pool()
+        slots = self._slots  # close() drops the loader's reference, not this one
+        pending: "deque" = deque()  # (slot, AsyncResult)
+        try:
+            for bi, global_batch in enumerate(batches):
+                slot = slots.acquire()
+                pending.append((slot, pool.apply_async(
+                    _worker_build, ((epoch, bi, global_batch), slot))))
+                if len(pending) < self.num_workers + 2:
+                    continue
+                yield self._open_result(slots, self._await(pending.popleft()[1]))
+            while pending:
+                yield self._open_result(slots, self._await(pending.popleft()[1]))
+        finally:
+            while pending:
+                slot, result = pending.popleft()
+                try:
+                    self._await(result)
+                except RuntimeError:  # close() during the teardown
+                    pass
+                slots.release(slot)
+
+    @staticmethod
+    def _open_result(slots, result) -> Batch:
+        """A worker's (descriptor, metadata) as a Batch of views of its slot."""
+        desc, meta = result
+        arrays = slots.open_batch(desc)
+        return Batch(
+            utterance_ids=meta["utterance_ids"],
+            transcripts=meta["transcripts"],
+            emg=arrays["emg"],
+            emg_lengths=arrays["emg_lengths"],
+            tokens=arrays["tokens"],
+            token_lengths=arrays["token_lengths"],
+            teacher=arrays.get("teacher"),
+            teacher_lengths=arrays.get("teacher_lengths"),
+        )
+
     def __iter__(self) -> Iterator[Batch]:
         epoch = self.epoch
         self.epoch += 1
         rng = np.random.default_rng((self.seed, epoch))
-        for bi, batch_indices in enumerate(self._epoch_batches(rng)):
+        batches = self._epoch_batches(rng)
+        if self.num_workers > 0:
+            yield from self._iter_workers(epoch, batches)
+            return
+        for bi, batch_indices in enumerate(batches):
             yield self._build_batch(epoch, bi, batch_indices)
+
+
+@contextlib.contextmanager
+def _main_hidden():
+    """While processes start: ``__main__`` without the ``__spec__`` and
+    ``__file__`` that ``multiprocessing`` reads to import it again in each
+    child (the fork server's own preload of it never takes effect on
+    Python 3.12: it looks for a ``main_path`` key its preparation data does
+    not have)."""
+    main = sys.modules.get("__main__")
+    if main is None:
+        yield
+        return
+    spec, file = getattr(main, "__spec__", None), main.__dict__.pop("__file__", None)
+    main.__spec__ = None
+    try:
+        yield
+    finally:
+        main.__spec__ = spec
+        if file is not None:
+            main.__file__ = file
+
+
+# A worker's state: its own copy of the loader (unpickled from the
+# parent's, without the pool) and the slot writer. A task is
+# ((epoch, batch index, global batch), slot); its result the slot's
+# descriptor and the batch's strings: the arrays go through the slot.
+_WORKER_LOADER: Optional[DataLoader] = None
+_WORKER_SLOTS = None
+
+
+def _worker_init(loader: DataLoader, slot_paths) -> None:
+    global _WORKER_LOADER, _WORKER_SLOTS
+    from ssd_tpu_torch.data.shm_slots import SlotWriter
+
+    _WORKER_LOADER = loader
+    _WORKER_SLOTS = SlotWriter(slot_paths)
+
+
+def _worker_build(task, slot: int):
+    epoch, batch_idx, global_batch = task
+    batch = _WORKER_LOADER._build_batch(epoch, batch_idx, global_batch)
+    arrays = {
+        "emg": batch.emg,
+        "emg_lengths": batch.emg_lengths,
+        "tokens": batch.tokens,
+        "token_lengths": batch.token_lengths,
+    }
+    if batch.teacher is not None:
+        arrays["teacher"] = batch.teacher
+        arrays["teacher_lengths"] = batch.teacher_lengths
+    desc = _WORKER_SLOTS.write(slot, arrays)
+    return desc, {"utterance_ids": batch.utterance_ids, "transcripts": batch.transcripts}
 
 
 def prefetch(loader: DataLoader, size: int = 2) -> Iterator[Batch]:
@@ -472,6 +650,7 @@ def make_dataloader(
     emg_dtype: str = "float32",
     num_shards: int = 1,
     shard_index: int = 0,
+    num_workers: int = 0,
 ) -> DataLoader:
     """Factory with the JAX package's surface (``dataset.py:make_dataloader``).
 
@@ -513,4 +692,5 @@ def make_dataloader(
         emg_dtype=emg_dtype,
         num_shards=num_shards,
         shard_index=shard_index,
+        num_workers=num_workers,
     )

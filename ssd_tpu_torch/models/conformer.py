@@ -27,6 +27,10 @@ every later block's promote to fp32 on ``final_ln``'s. ``scan_layers: true``
 feeds the blocks an fp32 carry (the JAX package's ``nn.scan`` needs a
 dtype-stable carry), so the port, which has only the unrolled layout, casts
 the subsampler's output to fp32 there; with fp32 compute that is a no-op.
+``pipeline_microbatches > 0`` runs the blocks through
+``parallel/pipeline.py``: with the same fp32 carry, GPipe over the
+``model`` ranks when the trainer placed the model over pipeline stages,
+else in order (one process, serving, evaluation).
 
 ``remat`` / ``remat_policy`` / ``attn_remat`` are the JAX package's
 ``nn.remat`` of a block (or of the attention alone) as
@@ -77,6 +81,7 @@ from ssd_tpu_torch.ops.attention import fused_attention
 from ssd_tpu_torch.ops.depthwise_conv import depthwise_conv1d
 from ssd_tpu_torch.ops.dropout import dropout, keep_multiplier, stream
 from ssd_tpu_torch.parallel import collectives as col
+from ssd_tpu_torch.parallel.pipeline import pipelined_stack
 from ssd_tpu_torch.ops.quant import QuantDense, int8_linear
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -643,18 +648,26 @@ class EMGConformerEncoder(nn.Module):
             t_pad = -(-t_out // par.model) * par.model
             x = col.split_seq(F.pad(x, (0, 0, 0, t_pad - t_out)), par.model_group)
             pad_mask = _length_mask(out_lengths, t_pad)
-        for block in self.blocks:
-            if c.remat and torch.is_grad_enabled():
-                x = _remat(functools.partial(block, pad_mask=pad_mask, train=train,
-                                             generator=generator), x, generator, c.remat_policy)
-            else:
-                x = block(x, pad_mask, train, generator)
+        if c.pipeline_microbatches > 0:  # fp32 carry; GPipe over `model` stages
+            x = pipelined_stack(c, self.blocks, x, pad_mask, train, generator, par)
+        else:
+            x = self._unrolled(x, pad_mask, train, generator)
         if par is not None and par.sequence:  # whole rows again for the heads
             x = col.gather_rows(x, par.model_group)[:, :t_out]
             pad_mask = pad_mask[:, :t_out]
         # zero padded frames: downstream decoders consume masked positions
         x = x.masked_fill(~pad_mask[:, :, None], 0.0)
         return x.float(), out_lengths
+
+    def _unrolled(self, x, pad_mask, train, generator):
+        c = self.cfg
+        for block in self.blocks:
+            if c.remat and torch.is_grad_enabled():
+                x = _remat(functools.partial(block, pad_mask=pad_mask, train=train,
+                                             generator=generator), x, generator, c.remat_policy)
+            else:
+                x = block(x, pad_mask, train, generator)
+        return x
 
 
 def init_flax_style(model: nn.Module, generator: torch.Generator) -> None:

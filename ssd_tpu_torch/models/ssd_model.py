@@ -13,13 +13,15 @@ log-probs and the student representation fp32); ``remat``,
 does (the weight bridge unstacks a ``scan_layers`` tree); ``quantize:
 int8`` / ``int8_prequant`` serve the FFN and pointwise Dense layers in int8
 (``ops/quant.py``; an ``int8_prequant`` model loads a state dict that
-``prequantize_state_dict`` converted). Values that
-select a path the port does not have yet raise ``NotImplementedError``
-naming the ROADMAP item that will (``pipeline_microbatches``: Q1.10b, the
-GPipe schedule). ``sequence_parallel`` shards the blocks' per-position
-regions on T when the trainer places the model over a ``model`` axis above
-1 (``parallel/partition.py:shard_model``); on one device it changes
-nothing.
+``prequantize_state_dict`` converted).
+``pipeline_microbatches > 0`` is validated as the JAX package validates it
+(``parallel/pipeline.py:validate_pipeline_config``) and runs the blocks with
+an fp32 carry: GPipe over the ``model`` ranks when the trainer places the
+model over pipeline stages, else in order, so a pipelined checkpoint serves,
+streams, exports and evaluates in one process. ``sequence_parallel``
+shards the blocks' per-position regions on T when the trainer places the
+model over a ``model`` axis above 1 (``parallel/partition.py:shard_model``);
+on one device it changes nothing.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch import nn
 
 from ssd_tpu_torch.models.conformer import EMGConformerEncoder, EncoderConfig
 from ssd_tpu_torch.models.heads import CTCHead, ProjectionHead
+from ssd_tpu_torch.parallel.pipeline import validate_pipeline_config
 
 
 class SSDModel(nn.Module):
@@ -74,13 +77,6 @@ class SSDModel(nn.Module):
         return self.ctc_head(enc), out_lengths
 
 
-def _not_ported(key: str, value: Any, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"model.encoder.{key}={value!r} is not ported to ssd_tpu_torch yet "
-        f"(ROADMAP.md {item})"
-    )
-
-
 def build_model(cfg: Dict[str, Any], input_dim: int, vocab_size: int) -> SSDModel:
     """Construct from the reference YAML config schema (``train.py:56-83``)."""
     enc = cfg["model"]["encoder"]
@@ -115,11 +111,7 @@ def build_model(cfg: Dict[str, Any], input_dim: int, vocab_size: int) -> SSDMode
             f"model.encoder.quantize must be 'none', 'int8', or "
             f"'int8_prequant', got {encoder_cfg.quantize!r}"
         )
-    if encoder_cfg.pipeline_microbatches > 0:
-        raise _not_ported(
-            "pipeline_microbatches", encoder_cfg.pipeline_microbatches,
-            "Q1.10b, the GPipe schedule of parallel/pipeline.py",
-        )
+    validate_pipeline_config(encoder_cfg)
     return SSDModel(
         encoder_cfg=encoder_cfg,
         projection_dim=cfg["model"]["projection_dim"],

@@ -209,7 +209,9 @@ class ParallelContext:
     ``data_group`` / ``model_group`` are the process groups of this rank's
     row and column of the mesh; ``sequence`` shards the per-position
     regions of each block on T over ``model`` (only when ``model > 1``);
-    ``fsdp`` shards parameters and their optimizer state over ``data``.
+    ``fsdp`` shards parameters and their optimizer state over ``data``;
+    ``pipeline`` (the microbatch count, 0 without) makes the ``model`` ranks
+    GPipe stages instead of tensor-parallel ones (only when ``model > 1``).
     """
 
     mesh: Any
@@ -221,15 +223,18 @@ class ParallelContext:
     model_group: Any
     sequence: bool = False
     fsdp: bool = False
+    pipeline: int = 0
 
     @classmethod
-    def from_mesh(cls, mesh, sequence: bool = False, fsdp: bool = False) -> "ParallelContext":
+    def from_mesh(cls, mesh, sequence: bool = False, fsdp: bool = False,
+                  pipeline: int = 0) -> "ParallelContext":
         data, model = mesh.shape
         return cls(
             mesh=mesh, data=int(data), model=int(model),
             data_rank=mesh.get_local_rank(DATA_AXIS), model_rank=mesh.get_local_rank(MODEL_AXIS),
             data_group=mesh.get_group(DATA_AXIS), model_group=mesh.get_group(MODEL_AXIS),
             sequence=bool(sequence) and model > 1, fsdp=bool(fsdp),
+            pipeline=int(pipeline) if model > 1 else 0,
         )
 
     @property
@@ -251,32 +256,39 @@ class ParallelContext:
 class RowSplit:
     """How a rank finds its rows. The loader shards over nodes (``batch_size``
     is per host, as in the JAX package, where a process drives its host's
-    chips); a node's batch is padded to a multiple of its data ranks and
-    split among them in contiguous blocks, the padding rows weighted 0."""
+    chips); a node's batch is padded to a multiple of its data ranks ×
+    ``microbatches`` (the pipeline's M, which must divide each data rank's
+    rows; 1 without a pipeline) and split among the data ranks in
+    contiguous blocks, the padding rows weighted 0."""
 
     num_shards: int = 1
     shard_index: int = 0
     local_data: int = 1
     local_index: int = 0
+    microbatches: int = 1
 
     def take(self, arrays: Dict[str, np.ndarray], real_rows: int) -> Dict[str, np.ndarray]:
         """This rank's rows of a node batch whose first ``real_rows`` are real."""
         arrays = dict(arrays)
         arrays["weight"] = arrays["weight"].copy()
         arrays["weight"][real_rows:] = 0.0
+        arrays, _ = pad_batch_to_multiple(arrays, self.local_data * max(1, self.microbatches))
         if self.local_data == 1:
             return arrays
-        arrays, _ = pad_batch_to_multiple(arrays, self.local_data)
         m = next(iter(arrays.values())).shape[0] // self.local_data
         lo = self.local_index * m
         return {k: v[lo:lo + m] for k, v in arrays.items()}
 
 
-def row_split(ctx: Optional[ParallelContext], env: Optional[Mapping[str, str]] = None) -> RowSplit:
+def row_split(ctx: Optional[ParallelContext], env: Optional[Mapping[str, str]] = None,
+              microbatches: int = 0) -> RowSplit:
     """The :class:`RowSplit` of this rank: nodes of ``LOCAL_WORLD_SIZE``
-    ranks, ``model`` innermost inside a node."""
+    ranks, ``model`` innermost inside a node; ``microbatches`` is the
+    encoder's ``pipeline_microbatches`` (each data rank's rows padded to a
+    multiple of it, one process too, as the JAX trainer pads)."""
+    m = max(1, int(microbatches))
     if ctx is None:
-        return RowSplit()
+        return RowSplit(microbatches=m)
     env = os.environ if env is None else env
     world, rank = dist.get_world_size(), dist.get_rank()
     local_world = _int(env, "LOCAL_WORLD_SIZE", world)
@@ -287,4 +299,4 @@ def row_split(ctx: Optional[ParallelContext], env: Optional[Mapping[str, str]] =
         )
     return RowSplit(num_shards=world // local_world, shard_index=rank // local_world,
                     local_data=local_world // ctx.model,
-                    local_index=(rank % local_world) // ctx.model)
+                    local_index=(rank % local_world) // ctx.model, microbatches=m)

@@ -22,6 +22,14 @@ local tensors; the forward brackets each sharded pair with the
 ``data`` sub-mesh, one unit a Conformer block and one for the rest, with
 ``shard_placement_fn`` returning the rule's dim.
 
+Under the GPipe schedule (``ctx.pipeline``, ``parallel/pipeline.py``) the
+``model`` ranks are stages, the JAX ``param_pspec(..., pipeline=True)``:
+stage s keeps the blocks it runs and holds the others' parameters as
+empty tensors (so every rank has the same parameter list, and the
+optimizer's moments of a block live on its stage only); everything else is
+replicated over ``model``, no TP rule applies, and FSDP2 over ``data``
+shards each stage's own blocks and the replicated rest.
+
 Known divergence from the JAX placement: FSDP2 shards every parameter. A
 leaf the rule leaves replicated (small, batch statistics aside, or without
 a dim ``fsdp_data`` divides) is sharded on dim 0, unevenly where it must
@@ -118,18 +126,21 @@ def _fsdp_dim(spec: List[Optional[str]], names: Sequence[str], shape: Tuple[int,
 
 
 def param_placement(name: str, shape: Sequence[int], model_par: int, fsdp_data: int = 0,
-                    num_heads: int = 1, buffer: bool = False) -> Placement:
+                    num_heads: int = 1, buffer: bool = False,
+                    pipeline: bool = False) -> Placement:
     """Where one port tensor is sharded: :class:`Placement` of port dims.
 
     ``name`` is the port's ``state_dict`` key, ``shape`` its full shape,
     ``num_heads`` the encoder's (attention weights merge the head axis).
     ``buffer=True`` marks the BatchNorm statistics (the JAX
-    ``batch_stats``), which stay replicated."""
+    ``batch_stats``), which stay replicated. ``pipeline=True``: the
+    ``model`` axis holds pipeline stages, so no TP rule applies (the stage
+    split is by block, :func:`shard_model`)."""
     names = name.split(".")
     if buffer:
         names = ["batch_stats"] + names
     fnames, fshape, to_port = _flax_view(names, tuple(int(s) for s in shape), num_heads)
-    spec = _tp_spec(fnames, len(fshape)) if not buffer else [None] * len(fshape)
+    spec = [None] * len(fshape) if buffer or pipeline else _tp_spec(fnames, len(fshape))
     tp = next((to_port[d] for d, s in enumerate(spec) if s == "model"), None)
     fsdp = _fsdp_dim(spec, fnames, fshape, fsdp_data)
     return Placement(tp=tp if model_par > 1 else None,
@@ -150,10 +161,13 @@ def shard_model(model: nn.Module, ctx: Optional[ParallelContext]) -> nn.Module:
     model._parallel = ctx
     model._tp_dims = {}
     model._sp_partial = set()
+    model._stage_of = {}
     if ctx is None:
         return model
     enc_cfg = model.encoder_cfg
-    if ctx.model > 1:
+    if ctx.pipeline:
+        _place_stages(model, ctx)
+    elif ctx.model > 1:
         if not check_tp_divisibility({"encoder": {"ffn_dim": enc_cfg.ffn_dim,
                                                   "num_heads": enc_cfg.num_heads}}, ctx.model):
             raise ValueError(
@@ -186,24 +200,58 @@ def shard_model(model: nn.Module, ctx: Optional[ParallelContext]) -> nn.Module:
                 block.conv.bn.par = ctx
     if ctx.fsdp:
         from torch.distributed.fsdp import fully_shard
-        from torch.distributed.tensor import Shard
+        from torch.distributed.tensor import DTensor, Replicate, Shard
 
         dims = {}
         for name, p in model.named_parameters():
-            full = list(p.shape)
+            full = list(model._stage_of[name][1] if name in model._stage_of else p.shape)
             if name in model._tp_dims:
                 full[model._tp_dims[name]] *= ctx.model
-            d = param_placement(name, full, ctx.model, ctx.data, enc_cfg.num_heads).fsdp
+            d = param_placement(name, full, ctx.model, ctx.data, enc_cfg.num_heads,
+                                pipeline=bool(ctx.pipeline)).fsdp
             dims[id(p)] = 0 if d is None else d
 
         def placement(p: nn.Parameter):
             return Shard(dims.get(id(p), 0))
 
         data_mesh = ctx.mesh[DATA_AXIS]
+        # another stage's blocks hold empty tensors: FSDP2 leaves them alone,
+        # and they become replicated DTensors so that every parameter the
+        # optimizer steps is one (its foreach kernels refuse a mix)
+        empty = set()
+        for name, p in list(model.named_parameters()):
+            if name in model._stage_of and model._stage_of[name][0] != ctx.model_rank:
+                mod_name, leaf = name.rsplit(".", 1)
+                q = nn.Parameter(DTensor.from_local(p.detach(), data_mesh, [Replicate()],
+                                                    run_check=False),
+                                 requires_grad=p.requires_grad)
+                setattr(model.get_submodule(mod_name), leaf, q)
+                empty.add(q)
         for block in model.encoder.blocks:
-            fully_shard(block, mesh=data_mesh, shard_placement_fn=placement)
-        fully_shard(model, mesh=data_mesh, shard_placement_fn=placement)
+            if not any(p in empty for p in block.parameters()):
+                fully_shard(block, mesh=data_mesh, shard_placement_fn=placement)
+        fully_shard(model, mesh=data_mesh, shard_placement_fn=placement,
+                    **({"ignored_params": empty} if empty else {}))
     return model
+
+
+def _place_stages(model: nn.Module, ctx: ParallelContext) -> None:
+    """GPipe placement: this stage keeps its blocks; another stage's
+    block parameters become empty tensors, recorded in ``model._stage_of``
+    (name → (stage, full shape)) for :func:`gather_for` / :func:`local_piece`."""
+    from ssd_tpu_torch.parallel.pipeline import check_stages, stage_of
+
+    blocks = model.encoder.blocks
+    check_stages(len(blocks), ctx.model)
+    for i, block in enumerate(blocks):
+        stage = stage_of(i, len(blocks), ctx.model)
+        for name, p in list(block.named_parameters()):
+            model._stage_of[f"encoder.blocks.{i}.{name}"] = (stage, tuple(p.shape))
+            if stage != ctx.model_rank:
+                mod_name, leaf = name.rsplit(".", 1)
+                setattr(block.get_submodule(mod_name), leaf,
+                        nn.Parameter(p.detach().new_empty(0), requires_grad=p.requires_grad))
+    model.encoder.par = ctx
 
 
 # --------------------------------------------------------------------------
@@ -252,14 +300,17 @@ def sync_grads(model: nn.Module) -> None:
 
 def grad_norm_fn(model: nn.Module) -> Optional[Callable[[List[torch.Tensor]], torch.Tensor]]:
     """The global gradient norm over the mesh for the optimizer's clip, each
-    parameter counted once: squares of TP shards summed over ``model``, of
-    FSDP shards over ``data``, replicated copies taken once. ``None`` in one
-    process and on a 1×1 mesh: the optimizer's own norm of the local
-    tensors, so one rank steps as one process does."""
+    parameter counted once: squares of TP shards and of pipeline stages'
+    blocks summed over ``model``, of FSDP shards over ``data``, replicated
+    copies taken once. ``None`` in one process and on a 1×1 mesh: the
+    optimizer's own norm of the local tensors, so one rank steps as one
+    process does."""
     ctx: Optional[ParallelContext] = getattr(model, "_parallel", None)
     if ctx is None or ctx.world == 1:
         return None
-    kinds = [(n in model._tp_dims, hasattr(p, "to_local")) for n, p in model.named_parameters()]
+    # a TP shard or a pipeline stage's block: its squares summed over `model`
+    over_model = set(model._tp_dims) | set(model._stage_of)
+    kinds = [(n in over_model, hasattr(p, "to_local")) for n, p in model.named_parameters()]
 
     kind = torch.tensor([(0 if tp else 2) + (0 if fs else 1) for tp, fs in kinds])
     onehot = torch.nn.functional.one_hot(kind, 4).to(torch.float32)
@@ -299,6 +350,13 @@ def gather_for(model: nn.Module, name: str, t: torch.Tensor) -> torch.Tensor:
         parts = [torch.empty_like(t) for _ in range(ctx.model)]
         dist.all_gather(parts, t.contiguous(), group=ctx.model_group)
         t = torch.cat(parts, dim)
+    stage = getattr(model, "_stage_of", {}).get(name)
+    if ctx is not None and stage is not None:  # a block: from its stage
+        owner, shape = stage
+        if ctx.model_rank != owner:
+            t = torch.empty(shape, dtype=t.dtype, device=t.device)
+        t = t.contiguous()
+        dist.broadcast(t, dist.get_global_rank(ctx.model_group, owner), group=ctx.model_group)
     return t.to("cpu", copy=True)
 
 
@@ -315,9 +373,16 @@ def local_piece(model: nn.Module, name: str, full: torch.Tensor, like: torch.Ten
     dim = getattr(model, "_tp_dims", {}).get(name)
     if ctx is not None and dim is not None and ctx.model > 1:
         full = full.chunk(ctx.model, dim)[ctx.model_rank]
+    from torch.distributed.tensor import DTensor
+
+    stage = getattr(model, "_stage_of", {}).get(name)
+    if ctx is not None and stage is not None and stage[0] != ctx.model_rank:
+        piece = full.new_empty(0, device=like.device)  # another stage's block
+        if not hasattr(like, "to_local"):
+            return piece
+        return DTensor.from_local(piece, like.device_mesh, like.placements, run_check=False)
     if not hasattr(like, "to_local"):
         return full.to(device=like.device, dtype=full.dtype).clone()
-    from torch.distributed.tensor import DTensor
 
     (shard,) = like.placements
     d, n = shard.dim, like.device_mesh.size()

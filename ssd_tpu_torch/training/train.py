@@ -22,19 +22,28 @@ seeded with ``logging.seed + 1``; the model is initialized by
 ``init_flax_style`` from a generator seeded with ``logging.seed``.
 
 The entry points run on the card unless the caller asks for the CPU
-(``device="cpu"`` / ``--device cpu``); a missing card raises. Config values
-that select a path this slice does not port raise ``NotImplementedError``
-naming their ROADMAP item.
+(``device="cpu"`` / ``--device cpu``); a missing card raises.
+
+``data.num_workers`` (else ``optim.num_workers``, the JAX trainer's keys)
+builds both loaders' batches in that many worker processes
+(``data/dataset.py``), bit-identical to ``0``; the trainer closes them when
+it returns or raises. The count is the host's, as in the JAX package, where
+one process drives a host: under ``torchrun`` each of a node's
+``LOCAL_WORLD_SIZE`` ranks builds the whole node batch and takes its rows,
+so each starts ``max(1, num_workers // LOCAL_WORLD_SIZE)`` workers.
 
 Over several cards (``python -m torch.distributed.run --nproc-per-node N
 -m ssd_tpu_torch.training.train ...``, one process a card, NCCL; gloo with
 ``--device cpu``) the ``parallel:`` block places the model over a ``(data,
 model)`` mesh (``parallel/``): data parallelism, ``model`` tensor
 parallelism, ``sequence`` parallelism and ``fsdp``, as the JAX trainer
-reads them; ``pipeline_microbatches`` raises (Q1.10b). Each rank takes its
-rows of the node's batch; the CTC weight sum, the distillation count and
-the BatchNorm statistics are those of the global batch, and each rank's
-loss is scaled so that the averaged gradient is the global batch's.
+reads them; ``pipeline_microbatches: M`` makes the ``model`` ranks GPipe
+stages instead (``parallel/pipeline.py``), each data rank's rows padded to
+a multiple of M with weight-0 rows (one process too, as the JAX trainer
+pads). Each rank takes its rows of the node's batch; the CTC weight sum,
+the distillation count and the BatchNorm statistics are those of the
+global batch, and each rank's loss is scaled so that the averaged gradient
+is the global batch's.
 Logging, scalars and checkpoints are rank 0's; a checkpoint holds the full
 tensors, so it loads at any topology.
 """
@@ -433,6 +442,7 @@ def _parallel_context(cfg: Dict[str, Any], dev: torch.device) -> Optional[Parall
     mesh = mesh_from_config(cfg, world, dev.type)
     par = cfg.get("parallel") or {}
     model_par = mesh.shape[1] if mesh is not None else 1
+    pp_micro = pipeline_microbatches(cfg)
     seq = bool(par.get("sequence", False))
     if seq:
         if model_par <= 1:
@@ -441,28 +451,41 @@ def _parallel_context(cfg: Dict[str, Any], dev: torch.device) -> Optional[Parall
         cfg["model"]["encoder"]["sequence_parallel"] = True
     if mesh is None:
         return None
-    ctx = ParallelContext.from_mesh(mesh, sequence=seq, fsdp=bool(par.get("fsdp", False)))
+    ctx = ParallelContext.from_mesh(mesh, sequence=seq, fsdp=bool(par.get("fsdp", False)),
+                                    pipeline=pp_micro)
     if ctx.is_main:
-        logger.info("Mesh: {'data': %d, 'model': %d} over %d device(s)%s%s", ctx.data,
+        logger.info("Mesh: {'data': %d, 'model': %d} over %d device(s)%s%s%s", ctx.data,
                     ctx.model, ctx.world, " (fsdp)" if ctx.fsdp else "",
-                    " (seq-parallel)" if ctx.sequence else "")
+                    " (seq-parallel)" if ctx.sequence else "",
+                    f" (pipeline ×{ctx.model}, {pp_micro} microbatches)" if ctx.pipeline else "")
     return ctx
+
+
+def pipeline_microbatches(cfg: Dict[str, Any]) -> int:
+    """``parallel.pipeline_microbatches`` written into the encoder's config
+    (so the checkpoint records it, as the JAX trainer does), else the
+    encoder's own value."""
+    pp = int((cfg.get("parallel") or {}).get("pipeline_microbatches", 0) or 0)
+    if pp > 0:
+        cfg["model"]["encoder"]["pipeline_microbatches"] = pp
+    return int(cfg["model"]["encoder"].get("pipeline_microbatches", 0) or 0)
 
 
 def _quiet(*args, **kwargs) -> None:
     pass
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to ssd_tpu_torch yet (ROADMAP.md {item})")
+def workers_per_rank(cfg: Dict[str, Any], local_world: int) -> int:
+    """``data.num_workers`` (else ``optim.num_workers``), the host's count,
+    split over the ``local_world`` ranks of a node, at least one each when
+    it is above 0."""
+    n = int(cfg["data"].get("num_workers", cfg["optim"].get("num_workers", 0)) or 0)
+    return max(1, n // max(1, local_world)) if n > 0 else 0
 
 
 def _check_slice(cfg: Dict[str, Any]) -> None:
-    """Refuse config values outside the port, and ``data.emg_dtype:
-    bfloat16`` without a bf16 encoder (the JAX trainer's check)."""
-    par = cfg.get("parallel") or {}
-    if int(par.get("pipeline_microbatches", 0) or 0) > 0:
-        raise _not_ported("parallel.pipeline_microbatches (the GPipe schedule)", "Q1.10b")
+    """Refuse ``int8_prequant`` training, and ``data.emg_dtype: bfloat16``
+    without a bf16 encoder (the JAX trainer's checks)."""
     enc = cfg["model"]["encoder"]
     if enc.get("quantize") == "int8_prequant":
         # int8 trains float: its forward quantizes only when not training
@@ -508,21 +531,23 @@ def train_from_config(
 
     created = maybe_initialize_distributed(device=device)
     try:
-        return _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resume,
-                      device, profile_dir)
+        # the loaders' worker processes stop however _train ends
+        with contextlib.ExitStack() as closing:
+            return _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer,
+                          resume, device, profile_dir, closing)
     finally:
         if created:
             dist.destroy_process_group()
 
 
 def _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resume, device,
-           profile_dir) -> Dict[str, Any]:
+           profile_dir, closing: contextlib.ExitStack) -> Dict[str, Any]:
     import torch.distributed as dist
 
     _check_slice(cfg)
     dev = resolve_device(rank_device(device))
     ctx = _parallel_context(cfg, dev)
-    split = row_split(ctx)
+    split = row_split(ctx, microbatches=pipeline_microbatches(cfg))
     main_rank = ctx is None or ctx.is_main
     info = logger.info if main_rank else _quiet
     if not main_rank:
@@ -550,13 +575,7 @@ def _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resu
         shuffle_train = False
         info("Overfitting on %d batches (~%d items)", overfit_batches, train_limit)
 
-    num_workers = int(cfg["data"].get("num_workers", cfg["optim"].get("num_workers", 0)))
-    if num_workers > 0:
-        info(
-            "num_workers=%d: the loader runs in-process with its prefetch thread "
-            "(batches are bit-identical either way; the worker pool is ROADMAP.md "
-            "queue 1 item 15)", num_workers,
-        )
+    num_workers = workers_per_rank(cfg, split.local_data * (ctx.model if ctx else 1))
     if bool(cfg["logging"].get("async_checkpoints", False)):
         info(
             "logging.async_checkpoints: true is not honoured: the port saves each "
@@ -578,6 +597,7 @@ def _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resu
         # a node's shard of every global batch (optim.batch_size is per node)
         num_shards=split.num_shards,
         shard_index=split.shard_index,
+        num_workers=num_workers,
     )
     train_loader = make_dataloader(
         splits=cfg["data"]["train_splits"],
@@ -599,10 +619,12 @@ def _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resu
         max_items=val_limit,
         **common,
     )
+    closing.callback(train_loader.close)
+    closing.callback(val_loader.close)
     info(
-        "Train batches: %d | Val batches: %d | batch %d | accum %d | device %s",
+        "Train batches: %d | Val batches: %d | batch %d | accum %d | workers %d | device %s",
         len(train_loader), len(val_loader), cfg["optim"]["batch_size"],
-        cfg["optim"].get("grad_accum", 1), dev,
+        cfg["optim"].get("grad_accum", 1), num_workers, dev,
     )
     if len(train_loader.dataset) == 0:
         raise ValueError("Empty training dataset after filtering.")

@@ -148,8 +148,14 @@ def test_fused_attention_and_pallas_depthwise_match_jax(override):
     ids=lambda o: next(iter(o)),
 )
 def test_unported_config_keys_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(_cfg(**override), input_dim=IN_DIM, vocab_size=VOCAB)
+    """``pipeline_microbatches`` was the last key the port refused; it now
+    builds (``tests/test_torch_pipeline.py`` holds it to JAX), and only what
+    the JAX package refuses raises, with its error."""
+    model = build_model(_cfg(**override), input_dim=IN_DIM, vocab_size=VOCAB)
+    assert model.encoder_cfg.pipeline_microbatches == override["pipeline_microbatches"]
+    with pytest.raises(ValueError, match="conv_norm: layer"):
+        build_model(_cfg(**dict(override, conv_norm="batch")), input_dim=IN_DIM,
+                    vocab_size=VOCAB)
 
 
 def test_invalid_config_values_raise_like_jax():

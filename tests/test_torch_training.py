@@ -385,7 +385,9 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu(tmp_path):
 def test_unported_training_config_raises(tmp_path, monkeypatch, caplog, section, override):
     """The ``parallel:`` block in one process without a launcher, as the
     JAX trainer takes it on one device: ``model: 2`` raises ``make_mesh``'s
-    ``ValueError``, ``pipeline_microbatches`` is still not ported (Q1.10b),
+    ``ValueError``, ``pipeline_microbatches`` with the default BatchNorm
+    raises ``validate_pipeline_config``'s (``tests/test_torch_pipeline.py``
+    trains it with ``conv_norm: layer``),
     ``WORLD_SIZE=2`` without a launcher's ``RANK`` is an error; ``fsdp`` and
     ``sequence`` train as no-ops (``sequence`` warns), the weights equal to
     a run without them."""
@@ -398,7 +400,7 @@ def test_unported_training_config_raises(tmp_path, monkeypatch, caplog, section,
     key = next(iter(override))
     if key in ("model", "pipeline_microbatches", "WORLD_SIZE"):
         error, match = {"model": (ValueError, "not divisible by model=2"),
-                        "pipeline_microbatches": (NotImplementedError, "Q1.10b"),
+                        "pipeline_microbatches": (ValueError, "conv_norm: layer"),
                         "WORLD_SIZE": (RuntimeError, "torch.distributed.run")}[key]
         with pytest.raises(error, match=match):
             ttrain.train_from_config(cfg, tmp_path / "run", device="cpu")

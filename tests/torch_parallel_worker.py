@@ -11,7 +11,9 @@ with torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` /
 rank runs the jobs in order, in one process group:
 
 * ``step``: a model from a ``state_dict``, placed by ``shard_model`` on
-  the job's ``parallel:`` block, through micro-steps of the trainer's
+  the job's ``parallel:`` block (``pipeline_microbatches`` included, each
+  data rank's rows padded to a multiple of it; ``foreach``: AdamW's
+  multi-tensor path, as on the card), through micro-steps of the trainer's
   ``make_train_step`` on the job's node batches; the losses, the first
   micro-step's synced gradients (taken as the optimizer steps) and the
   final parameters and buffers, all unsharded;
@@ -22,7 +24,10 @@ rank runs the jobs in order, in one process group:
   late); its summary, and the epoch, step and update count of the
   ``last`` it left;
 * ``halo``: ``collectives.halo`` on this rank's T-shard of a (3, T, 4)
-  ramp, and its backward of a ramp of this rank's own.
+  ramp, and its backward of a ramp of this rank's own;
+* ``pipeline_errors``: the GPipe placement of a stack the stages do not
+  divide, and a pipelined forward of rows the microbatches do not divide;
+  each ``ValueError``'s message.
 """
 
 from __future__ import annotations
@@ -81,11 +86,15 @@ def _step_job(job: Dict[str, Any]) -> Dict[str, Any]:
     model.load_state_dict(job["state_dict"])
     mesh = mesh_from_config({"parallel": par}, device_type="cpu")
     ctx = ParallelContext.from_mesh(mesh, sequence=par.get("sequence", False),
-                                    fsdp=par.get("fsdp", False))
+                                    fsdp=par.get("fsdp", False),
+                                    pipeline=par.get("pipeline_microbatches", 0))
     shard_model(model, ctx)
     names = [n for n, _ in model.named_parameters()]
     opt, _ = build_optimizer(cfg, [p for _, p in model.named_parameters()], 10,
                              grad_norm_fn(model))
+    if job.get("foreach"):  # AdamW's multi-tensor path, its default on the card
+        for group in opt.adamw.param_groups:
+            group["foreach"] = True
     out: Dict[str, Any] = {"losses": [], "grads": None}
     step_opt = opt.step
 
@@ -98,7 +107,8 @@ def _step_job(job: Dict[str, Any]) -> Dict[str, Any]:
     opt.step = capture_then_step
     state = ttrain.TrainState(model=model, optimizer=opt)
     train_step = ttrain.make_train_step(job["blank"], False, par=ctx)
-    split = RowSplit(local_data=ctx.data, local_index=ctx.data_rank)
+    split = RowSplit(local_data=ctx.data, local_index=ctx.data_rank,
+                     microbatches=max(1, par.get("pipeline_microbatches", 0)))
     for batch in job["batches"]:
         rows = split.take(batch, batch["emg"].shape[0])
         tb = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in rows.items()}
@@ -154,6 +164,25 @@ def _preempt_job(job: Dict[str, Any]) -> Dict[str, Any]:
     return summary
 
 
+def _pipeline_errors_job(job: Dict[str, Any]) -> Dict[str, Any]:
+    from ssd_tpu_torch.models.ssd_model import build_model
+    from ssd_tpu_torch.parallel.mesh import ParallelContext, mesh_from_config
+    from ssd_tpu_torch.parallel.partition import shard_model
+
+    par = job["parallel"]
+    mesh = mesh_from_config({"parallel": par}, device_type="cpu")
+    ctx = ParallelContext.from_mesh(mesh, pipeline=par["pipeline_microbatches"])
+    out = {}
+    for name, cfg, rows in (("layers", job["cfg_odd_layers"], 4), ("rows", job["cfg"], 3)):
+        model = build_model(cfg, input_dim=job["input_dim"], vocab_size=job["vocab"])
+        try:
+            shard_model(model, ctx)
+            model(torch.zeros(rows, 16, job["input_dim"]), torch.full((rows,), 16))
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
 def _halo_job(job: Dict[str, Any]) -> Dict[str, Any]:
     import torch.distributed as dist
 
@@ -169,7 +198,8 @@ def _halo_job(job: Dict[str, Any]) -> Dict[str, Any]:
     return {"y": y.detach(), "contiguous": y.is_contiguous(), "gy": gy, "gx": x.grad}
 
 
-JOBS = {"step": _step_job, "train": _train_job, "preempt": _preempt_job, "halo": _halo_job}
+JOBS = {"step": _step_job, "train": _train_job, "preempt": _preempt_job, "halo": _halo_job,
+        "pipeline_errors": _pipeline_errors_job}
 
 
 def main(workdir: str) -> None:
