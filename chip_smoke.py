@@ -65,7 +65,7 @@ failing loudly:
              CPU from the same weights and batch (dropout 0, no
              augmentation): losses, every gradient and the updated batch
              statistics; then 20 steps on one batch must lower the loss.
-9. train rate — step time p50 over 10 warm steps, split into forward +
+9. train rate — step time p50 over 5 warm steps, split into forward +
              loss, backward and optimizer, utterances/s, and the CTC
              kernels' share of the step, at B = 5 (config) and B = 32;
              peak memory per shape; the profiler's device-busy share.
@@ -141,7 +141,7 @@ failing loudly:
              ``/transcribe`` at B = 1 and 8 (12 000 samples a request),
              launch counts zeroed before and read after (log-mel once,
              attention and depthwise forward once a block, a transcribe);
-             the LM-fused beam-50 p50 over 5 ``engine.transcribe`` runs
+             the LM-fused beam-50 time of one ``engine.transcribe`` run
              beside the plain beam-50's at B = 1 and 8, the first LM run
              equal to the served reply (times recorded, not gated); the
              decode alone a frame, the LM search with its specialised
@@ -170,15 +170,17 @@ failing loudly:
              op's host time a call beside its wrapper's alone. It prints its
              sub-steps' seconds.
 15. tpu_scaled_large in bf16 — ``configs/tpu_scaled_large.yaml`` through
-             the port's YAML reader (d_model 768, 12 blocks, 12 heads of hd
-             64, ffn 3 072, 166 M parameters, ``compute_dtype: bfloat16``,
-             ``remat``, ``scan_layers``, raw EMG, bf16 teacher features),
-             cut only in its ``parallel:`` section (one device: phase 18b
-             runs it as shipped when there are two cards), random
-             seeded weights, depth not cut: (a) the bf16 instances of the
-             attention and depthwise kernels against their plain bf16
-             versions at B = 32, T′ 384 (dropout multiplier) and B = 8, T′
-             625 (H 12, hd 64, C 768, K 15): the depthwise forward and dx
+             the port's YAML reader (d_model 768, 12 heads of hd 64, ffn
+             3 072, ``compute_dtype: bfloat16``, ``remat``,
+             ``scan_layers``, raw EMG, bf16 teacher features), cut in its
+             ``parallel:`` section (one device: phase 18b runs it as
+             shipped when there are two cards) and in depth, 8 of its 12
+             blocks (``LARGE_BLOCKS``: the run's time budget since phase
+             20; 166 M parameters at 12), random seeded weights: (a) the
+             bf16 instances of the attention and depthwise kernels against
+             their plain bf16 versions at B = 32, T′ 384 (dropout
+             multiplier) and B = 8, T′ 625 (H 12, hd 64, C 768, K 15): the
+             depthwise forward and dx
              bit-equal, dw / db within 1e-4 and attention out / dq / dk /
              dv within 2⁻⁶ of each output's largest, the training forward's
              out its fp32 output (õ, the backward's D) rounded and equal to
@@ -189,7 +191,8 @@ failing loudly:
              (as shipped, and ``attention_impl: fused`` + ``depthwise_impl:
              pallas``) through phase 3/4's counted run at B = 1 and 8
              (greedy, beam-50, three ``/transcribe``; 1 log-mel and, fused,
-             12 bf16 attention- and 12 depthwise-forward launches a call),
+             a bf16 attention- and a depthwise-forward launch a block a
+             call),
              card log-probs held to the CPU engine's and a one-window
              stream's to the offline forward within a bf16 tolerance with
              greedy tokens equal on decisive frames, an exported call
@@ -270,12 +273,13 @@ failing loudly:
              trains (the train and val loaders' pools: 8) and none after;
              the training loader alone at tpu_fast_plus B = 32 (256
              utterances of one 768-frame bucket, cached features and raw
-             EMG, teacher on, page cache warm) at 0, 2, 4 and 8 workers in
+             EMG, teacher on, page cache warm) at 0, 4 and 8 workers in
              batches/s and utt/s, beside the fused step's device time
              (profiler) on one of its batches, with ``os.cpu_count()``. (b)
              ``configs/tpu_scaled_large.yaml`` with ``conv_norm: layer`` and
              ``pipeline_microbatches: 16`` (``scan_layers`` off, which the
-             pipeline excludes) at full width and depth, bf16, fused/pallas,
+             pipeline excludes) at full width, ``LARGE_BLOCKS`` deep, bf16,
+             fused/pallas,
              remat as shipped, on one card (no stages: the sequential
              stack): trained steps finite, launches counted (the forward
              kernels twice a step under remat), the step's device time
@@ -297,6 +301,30 @@ failing loudly:
              and the bubble (M + S − 1)/M; then 2 stages twice with the
              shipped dropout, bit-equal run to run; with one card it prints
              ``{"phase": "19c", "skipped": ...}``.
+20. experiment sweep — (a) a working directory with phase 7's 20 voiced
+             utterances and 12 silent ones made the same way, the shipped
+             voiced and silent base configs at full width read by the
+             port's YAML reader and written back by its writer with only
+             the data paths, ``attention_impl: fused`` /
+             ``depthwise_impl: pallas`` and (silent) ``train_from_raw``
+             changed, one 1-epoch probe variant a dataset, and slim decoder
+             grids (greedy, beam 50, one LM entry); (b) ``python -m
+             ssd_tpu_torch.experiments.orchestrate --probe-batches 2
+             --probe-batches-silent 2``: the two-stage sweep with every
+             trainer and eval CLI a child process on the card (``--device
+             cuda``, read back from each child's log), its record count,
+             ``summary.csv``'s header, every silent run started from the
+             best stage-2 voiced checkpoint, the LM entries skipped; (c) the
+             same with ``--resume``: no child started, records unchanged;
+             (d) the best stage-2 silent run's ``best`` and ``last``
+             averaged by ``average_checkpoints`` (every tensor
+             ``torch.equal`` to a float64 mean taken here), evaluated
+             in-process through the eval CLI on the card from raw EMG,
+             launches counted, log-probs within phase 12's tolerance of a
+             CPU forward; (e) ``python -m ssd_tpu_torch.evaluation.visualize``
+             on one cached utterance, or ``{"phase": "20e", "skipped":
+             "matplotlib not installed"}``. It prints each sub-step's
+             seconds.
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
@@ -320,8 +348,10 @@ import dataclasses
 import functools
 import importlib.util
 import json
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -367,6 +397,7 @@ from ssd_tpu_torch.training import train as trainer
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from ssd_tpu_torch.training.schedules import build_optimizer
 from ssd_tpu_torch.utils.config import load_config
+from ssd_tpu_torch.utils.yaml_subset import read_yaml, write_yaml
 
 SEED = 0
 CHANNELS = 8
@@ -808,6 +839,7 @@ TRAIN_GRAD_FLOOR = 1e-6  # … this: the attention key bias and the depthwise-co
 # have a true gradient of 0 (softmax shift / batch-mean invariance), so both
 # devices return rounding noise for them
 TRAIN_STAT_ATOL = 1e-5
+RATE_STEPS = 5  # warm steps timed a shape by the train-rate phases (9, 11d)
 
 
 COUNTERS = {"logmel": feat.LOGMEL, "ctc_alpha": ctc.CTC_ALPHA, "ctc_beta": ctc.CTC_BETA,
@@ -983,17 +1015,17 @@ def phase_ctc(rng: np.random.Generator) -> dict:
     return {"entries": entries, "times": times}
 
 
-def make_corpus(root: Path, rng: np.random.Generator) -> Path:
-    """20 voiced utterances (16 train, 4 val) → features, teacher, JSONL
-    index, vocab, and the shipped config with the corpus's data paths as the
-    run's JSON config; returns its path."""
-    vocab_path = root / "vocab.json"
-    default_vocab().to_json(vocab_path)
+def utterances(root: Path, rng: np.random.Generator, split: str, n_utts: int,
+               n_train: int) -> list:
+    """``n_utts`` random raw utterances of ``split`` (the first ``n_train``
+    train, the rest val) under ``root``: raw EMG, log-mel features made on
+    the card, teacher features, random transcripts; returns their index
+    rows."""
     fcfg = feat.FeaturizerConfig(**shipped_config()["features"]["emg"])
     chars = list("abcdefghijklmnopqrstuvwxyz") + [" "] * 6 + list("',.?")
     rows = []
-    for i in range(20):
-        uid = f"voiced_parallel_data/s1/{i}_0"
+    for i in range(n_utts):
+        uid = f"{split}/s1/{i}_0"
         n = int(rng.integers(4000, 12001))
         raw = rng.normal(size=(n, CHANNELS)).astype(np.float32)
         raw_path = root / "raw" / f"{i}_0_emg.npy"
@@ -1007,11 +1039,20 @@ def make_corpus(root: Path, rng: np.random.Generator) -> Path:
             path.parent.mkdir(parents=True, exist_ok=True)
             np.save(path, arr)
         text = "".join(rng.choice(chars, size=int(rng.integers(30, 151))))
-        rows.append(dict(utterance_id=uid, split="voiced_parallel_data",
-                         subset="train" if i < 16 else "val", speaker="s1", stem=f"{i}_0",
+        rows.append(dict(utterance_id=uid, split=split,
+                         subset="train" if i < n_train else "val", speaker="s1", stem=f"{i}_0",
                          emg_path=str(raw_path), audio_path=None, transcript=text,
                          sentence_index=i, book="", has_audio=False, metadata_json="{}"))
-    save_index(rows, root / "index.jsonl")
+    return rows
+
+
+def make_corpus(root: Path, rng: np.random.Generator) -> Path:
+    """20 voiced utterances (16 train, 4 val) → features, teacher, JSONL
+    index, vocab, and the shipped config with the corpus's data paths as the
+    run's JSON config; returns its path."""
+    vocab_path = root / "vocab.json"
+    default_vocab().to_json(vocab_path)
+    save_index(utterances(root, rng, "voiced_parallel_data", 20, 16), root / "index.jsonl")
     cfg = copy.deepcopy(shipped_config())
     cfg["data"].update(index=str(root / "index.jsonl"), features_root=str(root / "features"),
                        vocab=str(vocab_path))
@@ -1207,14 +1248,14 @@ def phase_train_rate(rng: np.random.Generator, ctc_times: dict, kernel_times=Non
 
         for _ in range(3):
             timed_step()
-        split = np.asarray([timed_step() for _ in range(10)]) * 1e3
+        split = np.asarray([timed_step() for _ in range(RATE_STEPS)]) * 1e3
         step_ms = float(np.percentile(split.sum(axis=1), 50))
         fwd, bwd, upd = (float(np.percentile(split[:, i], 50)) for i in range(3))
         t = ctc_times[label]
         share = (t["alpha"] + t["beta"]) / step_ms
         name = f"{label}{' ' + str(enc) if enc else ''}"
         print(f"[rate] {name} B={B} {frames} frames (T'={frames // 2}, S={S}): step p50 {step_ms:.3f} ms "
-              f"(forward + loss {fwd:.3f}, backward {bwd:.3f}, optimizer {upd:.3f}; 10 warm steps, "
+              f"(forward + loss {fwd:.3f}, backward {bwd:.3f}, optimizer {upd:.3f}; {RATE_STEPS} warm steps, "
               f"host clock with a sync around each part) = {B / step_ms * 1e3:.2f} utterances/s; "
               f"CTC kernels α {t['alpha']:.4f} + β {t['beta']:.4f} ms = {share * 100:.2f} % of the step "
               f"(CUDA events, same shapes); peak memory "
@@ -1745,8 +1786,8 @@ LM_WORDS, LM_ZIPF = 20000, 1.1
 LM_WEIGHTS = dict(alpha=0.6, beta=0.2)  # the search check's; serving and eval take the config's
 LM_SCORE_ATOL = 1e-4  # final scores card vs CPU: the merged runs' log-sum-exp order only
 LM_HOST_WIDTH = 8  # the host search is a Python loop: width 8 keeps its eval run short
-LM_TIMED_RUNS = 5  # transcribes a search and batch: the p50 is their median, the first run included
-LM_WALK_RUNS = 5  # decodes alone a search: their median
+LM_TIMED_RUNS = 1  # transcribes a search and batch: the p50 is their median, the first run included
+LM_WALK_RUNS = 3  # decodes alone a search: their median
 LM_PROFILE_FRAMES = 64  # frames of the decodes alone: a trace costs host time with its events
 
 
@@ -2016,7 +2057,7 @@ ONE_WINDOW_SAMPLES, ONE_WINDOW_CHUNK = 5000, 512  # 469 frames, one window with 
 CONCURRENT_SAMPLES = 4000  # each of the 4 concurrent sessions: 4 windows
 STREAM_TOL = 2e-3  # emitted log-probs vs the offline forward and vs the CPU (as LOGPROB_TOL)
 EXPORT_BATCHES = (1, 8)
-EXPORT_RUNS = 20  # alternating exported / eager calls timed a batch size
+EXPORT_RUNS = 10  # alternating exported / eager calls timed a batch size
 OVERHEAD_CALLS, OVERHEAD_REPS = 200, 5  # host enqueue time of the ops and their wrappers
 
 
@@ -2334,7 +2375,7 @@ PR10_BF16_MS = {("attention_fwd_bf16", "train"): 0.1769, ("attention_bwd_bf16", 
                 ("depthwise_fwd_bf16", "train"): 0.0488, ("depthwise_bwd_bf16", "train"): 0.0977,
                 ("depthwise_fwd_bf16", "serve"): 0.0215, ("depthwise_bwd_bf16", "serve"): 0.0418}
 # card vs CPU (and a stream window vs the offline forward), both bf16: a
-# rounding flipped anywhere in 12 blocks moves the encoder's output by a
+# rounding flipped anywhere in the blocks moves the encoder's output by a
 # fraction of a percent, so the logits — and the log-probs — by that
 # fraction of their scale: within 2⁻⁶ of the largest |log-prob|
 BF16_LOGPROB_REL = 2.0**-6
@@ -2342,7 +2383,10 @@ BF16_LOSS_RTOL = 1e-2  # card vs CPU train step, both bf16
 # bf16 gradients card vs CPU, per tensor as a fraction of its largest fp32
 # gradient: within twice the CPU's own bf16-vs-fp32 gap, plus 1 %
 BF16_GRAD_NOISE_FACTOR, BF16_GRAD_FLOOR = 2.0, 1e-2
-LARGE_RATE_STEPS = 10
+LARGE_RATE_STEPS = 5
+# blocks of tpu_scaled_large (12 as shipped) in phases 15, 16 and 19: the run's time budget;
+# a multiple of 4 keeps phase 19c's 4-stage pipeline whole
+LARGE_BLOCKS = 8
 LARGE_PARITY_BLOCKS, LARGE_PARITY_B = 2, 2  # card vs CPU step: depth cut for the CPU's sake
 
 
@@ -2350,9 +2394,11 @@ LARGE_PARITY_BLOCKS, LARGE_PARITY_B = 2, 2  # card vs CPU step: depth cut for th
 def large_config() -> dict:
     """``configs/tpu_scaled_large.yaml`` through ``load_config``, its
     ``parallel:`` section cut to one device (phase 15 runs on one card;
-    phase 18b runs the block as shipped over two); callers copy it."""
+    phase 18b runs the block as shipped over two) and its depth to
+    ``LARGE_BLOCKS``; callers copy it."""
     cfg = load_config(LARGE_PATH)
     cfg["parallel"] = {"data": "auto", "model": 1}
+    cfg["model"]["encoder"]["num_layers"] = LARGE_BLOCKS
     return cfg
 
 
@@ -2936,7 +2982,8 @@ def large_train_parity(rng: np.random.Generator, enc=None, configs=(False, True)
 
 def phase_large(root: Path, rng: np.random.Generator, card: str) -> dict:
     """Phase 15: ``configs/tpu_scaled_large.yaml`` in bf16 on the card, at
-    full width and depth, served and trained in both configurations.
+    full width and ``LARGE_BLOCKS`` deep, served and trained in both
+    configurations.
     Returns the bf16 kernels' entries with the launches of its counted runs."""
     steps = {}
     cfg, enc = large_config(), large_config()["model"]["encoder"]
@@ -2995,7 +3042,7 @@ QUANT_MODES = ("int8", "int8_prequant")
 QUANT_NOISE = 2 ** 0.5
 QUANT_TOL = 1e-3
 PREQUANT_TOL = dict(rtol=1e-5, atol=1e-6)  # int8_prequant vs int8 (tests/test_quant.py's bound)
-QUANT_RUNS = 11  # alternating transcribes a configuration and batch: the p50 is their median
+QUANT_RUNS = 5  # alternating transcribes a configuration and batch: the p50 is their median
 TWO_WINDOW_SAMPLES = 8000  # 769 frames: two windows with S = 512
 T_SERVE = 625  # T' of the 12 800-sample bucket after both models' ×2 subsampler
 
@@ -3245,7 +3292,7 @@ def phase_quant(root: Path, rng: np.random.Generator, card: str) -> dict:
             t1 = time.perf_counter()
             eng.transcribe(reqs)
             runs[name].append((time.perf_counter() - t1) / 8 * 1e3)
-    print(f"[quant] tpu_scaled_large bf16 int8_prequant at full width and depth, B=8: "
+    print(f"[quant] tpu_scaled_large bf16 int8_prequant at full width, {LARGE_BLOCKS} blocks, B=8: "
           f"{len(hyps)} hypotheses, launches a transcribe {({k: v for k, v in moved.items() if v})}; "
           f"log-probs vs the bf16 float engine max abs {gap:.3e}, greedy tokens equal on "
           f"{float(same):.4f} of the valid frames; greedy p50 an utterance " + ", ".join(
@@ -3549,8 +3596,6 @@ class StepRecorder:
 def rank_train(spec_path: str) -> int:
     """One rank of phase 18a under ``torch.distributed.run``: the trainer
     CLI (``trainer.main``) with the launch counts and the steps recorded."""
-    import os
-
     spec = json.loads(Path(spec_path).read_text())
     torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets them
     torch.backends.cudnn.allow_tf32 = False
@@ -3897,8 +3942,8 @@ def phase_multi(root: Path, fused_ckpt: Path, rng: np.random.Generator, card: st
 
 LOADER_UTTS = 256  # 8 batches of 32: every worker count up to 8 has a batch to build
 LOADER_FRAMES = (640, 769)  # cached lengths of one 768-frame bucket (raw: × hop 10)
-LOADER_WORKERS = (0, 2, 4, 8)
-LOADER_EPOCHS = 2  # steady epochs timed at each worker count, after a first one
+LOADER_WORKERS = (0, 4, 8)
+LOADER_EPOCHS = 1  # steady epochs timed at each worker count, after a first one
 PIPE_M = 16  # tpu_scaled_large's documented pipeline block: {model: 4, pipeline_microbatches: 16}
 PIPE_ENC = {"conv_norm": "layer", "scan_layers": False, "pipeline_microbatches": PIPE_M}
 
@@ -4016,15 +4061,11 @@ class PoolWatch:
     forked by the fork server this process started (its grandchildren)."""
 
     def __init__(self, every: float = 0.05) -> None:
-        import os
-
         self.me, self.every, self.most = os.getpid(), every, 0
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._watch, daemon=True)
 
     def workers(self) -> int:
-        import os
-
         parent, cmd = {}, {}
         for pid in os.listdir("/proc"):
             if not pid.isdigit():
@@ -4058,8 +4099,6 @@ def workers_train(root: Path, card: str) -> dict:
     epoch with the shipped ``data.num_workers: 4`` and with 0: every logged
     loss and trained weight bit-equal, the workers seen in the process
     table while it trains, none after."""
-    import os
-
     base = load_config(root / "config.json")
     base["model"]["encoder"].update(FUSED)
     base["data"]["train_from_raw"] = True
@@ -4107,10 +4146,8 @@ def workers_train(root: Path, card: str) -> dict:
 
 def workers_rates(root: Path, rng: np.random.Generator, card: str) -> None:
     """Phase 19a: the loader alone at B = 32 (cached features of 768
-    frames, and raw EMG) at 0, 2, 4 and 8 workers, beside the fused
+    frames, and raw EMG) at 0, 4 and 8 workers, beside the fused
     tpu_fast_plus step's device time on the same batch."""
-    import os
-
     t0 = time.perf_counter()
     cfg = load_config(loader_corpus(root, rng))
     made = time.perf_counter() - t0
@@ -4135,7 +4172,7 @@ def workers_rates(root: Path, rng: np.random.Generator, card: str) -> None:
 
 
 def pipe_cfg(dtype: str = "bfloat16", **enc) -> dict:
-    """tpu_scaled_large (full width and depth unless ``enc`` cuts it),
+    """tpu_scaled_large (full width, ``LARGE_BLOCKS`` deep unless ``enc`` cuts it),
     fused/pallas, with ``conv_norm: layer`` and the pipeline block's
     microbatches (``scan_layers`` off: the pipeline excludes it)."""
     cfg = copy.deepcopy(large_config())
@@ -4178,7 +4215,7 @@ def pipe_step(cfg: dict, batch: dict, steps: int = 1) -> tuple:
 def pipe_large(root: Path, rng: np.random.Generator, card: str) -> dict:
     """Phase 19b: tpu_scaled_large with ``conv_norm: layer`` and
     ``pipeline_microbatches: 16`` on one card (no stages: the sequential
-    stack), full width and depth, bf16, fused/pallas, remat as shipped:
+    stack), full width, ``LARGE_BLOCKS`` deep, bf16, fused/pallas, remat as shipped:
     trained steps that are finite, launches counted, the step's device time
     beside the same config unpipelined; served log-probs equal to the same
     weights unpipelined (``scan_layers``' fp32 carry, as shipped); the
@@ -4472,6 +4509,282 @@ def phase_pipeline_workers(root: Path, train_dir: Path, rng: np.random.Generator
     return total
 
 
+# ------------------------------------------------- the experiment sweep (phase 20)
+
+SWEEP_SILENT = (12, 8)  # silent utterances beside phase 7's 20 voiced: (all, train)
+SWEEP_PROBE_BATCHES = 2  # --probe-batches and --probe-batches-silent
+SWEEP_TIMEOUT = 600  # seconds for the sweep's orchestrator and all its children
+LM_ENTRY = {"name": "beam50_lm", "method": "beam", "beam_width": 50, "alpha": 0.5,
+            "use_lm": True, "lm_path": "results/lm/char_5gram.arpa"}
+BEAM50 = {"name": "beam50", "method": "beam", "beam_width": 50, "alpha": 0.45}
+GREEDY = {"name": "greedy", "method": "greedy"}
+# the slim decoder grids: greedy and beam 50, and one LM entry, skipped for
+# want of an ARPA file
+SWEEP_GRIDS = {"probe_voiced": [BEAM50], "probe_silent": [GREEDY],
+               "full_voiced": [GREEDY, LM_ENTRY], "full_silent": [BEAM50]}
+REPO_ROOT = Path(__file__).resolve().parent
+
+
+def sweep_workdir(wd: Path, train_dir: Path, rng: np.random.Generator) -> None:
+    """Phase 20a: the sweep's working directory. Phase 7's voiced corpus (its
+    index rows and, linked, its feature directories) and 12 silent
+    utterances made the same way; the shipped voiced and silent base configs
+    read by the port's YAML reader, full width, with only the data paths,
+    the fused/pallas keys and (silent) ``train_from_raw`` changed, written
+    back by its YAML writer; one probe variant a dataset (1 epoch) and the
+    slim decoder grids."""
+    data = wd / "data"
+    for kind in ("emg", "teacher"):
+        link = data / "features" / kind / "voiced_parallel_data"
+        link.parent.mkdir(parents=True, exist_ok=True)
+        link.symlink_to(train_dir / "features" / kind / "voiced_parallel_data",
+                        target_is_directory=True)
+    rows = index_dataset.load_index(train_dir / "index.jsonl")
+    rows += utterances(data, rng, "silent_parallel_data", *SWEEP_SILENT)
+    save_index(rows, data / "index.jsonl")
+    paths = dict(index=str(data / "index.jsonl"), features_root=str(data / "features"),
+                 vocab=str(train_dir / "vocab.json"))
+    (wd / "configs" / "experiments").mkdir(parents=True)
+    for name, raw in (("tpu_fast_plus.yaml", False), ("tpu_silent_finetune_plus.yaml", True)):
+        cfg = read_yaml((CONFIG_PATH.parent / name).read_text(), name)
+        cfg["data"].update(paths)
+        if raw:
+            cfg["data"]["train_from_raw"] = True
+        cfg["model"]["encoder"].update(FUSED)
+        (wd / "configs" / name).write_text(write_yaml(cfg))
+    for dataset in ("voiced", "silent"):
+        probes = {"base_overrides": {"optim": {"max_epochs": 1}},
+                  "variants": [{"name": f"probe_{dataset[0]}_base", "overrides": {},
+                                "tags": ["baseline"], "description": f"one {dataset} probe"}]}
+        (wd / "configs" / "experiments" / f"{dataset}_probes.yaml").write_text(write_yaml(probes))
+    (wd / "configs" / "experiments" / "decoder_grids.yaml").write_text(write_yaml(SWEEP_GRIDS))
+
+
+def orchestrate(wd: Path, *extra: str) -> list:
+    """``python -m ssd_tpu_torch.experiments.orchestrate`` in ``wd`` (the
+    default ``--device cuda`` for every child), waited for; its log, the
+    children's included, as (seconds since the start, line) pairs."""
+    cmd = [sys.executable, "-m", "ssd_tpu_torch.experiments.orchestrate",
+           "--probe-batches", str(SWEEP_PROBE_BATCHES),
+           "--probe-batches-silent", str(SWEEP_PROBE_BATCHES), *extra]
+    t0 = time.perf_counter()
+    # its own session, so that the watchdog stops the running child with it
+    proc = subprocess.Popen(cmd, cwd=wd, env=dict(os.environ, PYTHONPATH=str(REPO_ROOT)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    watchdog = threading.Timer(SWEEP_TIMEOUT, os.killpg, (proc.pid, signal.SIGKILL))
+    watchdog.start()
+    try:
+        lines = [(time.perf_counter() - t0, line.rstrip("\n")) for line in proc.stdout]
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+    if rc:
+        print("\n".join(line for _, line in lines[-150:]))
+        raise SmokeFailure(f"the sweep {' '.join(extra)} exited {rc}")
+    return lines
+
+
+def children(lines: list) -> list:
+    """Each child the orchestrator started, in order (the children write into
+    the orchestrator's own stream): its command line, output, seconds, and
+    the seconds to its first line (start-up: the interpreter, torch, CUDA)."""
+    starts = [i for i, (_, line) in enumerate(lines) if "Running: " in line]
+    out = []
+    for k, i in enumerate(starts):
+        end = starts[k + 1] if k + 1 < len(starts) else len(lines) - 1
+        body = lines[i + 1:end]
+        out.append({"cmd": lines[i][1].split("Running: ", 1)[1],
+                    "out": "\n".join(line for _, line in body),
+                    "seconds": lines[end][0] - lines[i][0],
+                    "first": (body[0][0] if body else lines[end][0]) - lines[i][0],
+                    "epochs": [t - lines[i][0] for t, line in body
+                               if re.search(r"Epoch \d+ done", line)]})
+    return out
+
+
+def sweep_check(wd: Path, lines: list, card: str) -> dict:
+    """Phase 20b: the sweep's records, summary files, init-checkpoint chain,
+    skipped LM entries and the children's device; where its time went."""
+    from ssd_tpu_torch.experiments.orchestrate import CSV_FIELDS, pick_best
+
+    log = "\n".join(line for _, line in lines)
+    records = json.loads((wd / "results/experiments/summary.json").read_text())
+    g = {k: [e for e in v if not e.get("use_lm")] for k, v in SWEEP_GRIDS.items()}
+    want = (len(g["probe_voiced"]) + 2 * len(g["full_voiced"]) + len(g["probe_silent"])
+            + 2 * len(g["full_silent"]))
+    check(len(records) == want, f"sweep: {len(records)} records, expected {want}")
+    header = (wd / "results/experiments/summary.csv").read_text().splitlines()[0]
+    check(header.split(",") == CSV_FIELDS, f"sweep: summary.csv header {header}")
+    cells = {(r["stage"], r["dataset"]) for r in records}
+    check(cells == {("stage1", "voiced"), ("stage2", "voiced"), ("stage1", "silent"),
+                    ("stage2", "silent")}, f"sweep: cells {cells}")
+    for r in records:
+        check(r["cer"] is not None and np.isfinite(r["cer"]) and r["wer"] is not None,
+              f"sweep: {r['train_run']} {r['decoder_name']} CER {r['cer']} WER {r['wer']}")
+    seed = pick_best(records, "voiced", "stage2")["checkpoint_path"]
+    runs = children(lines)
+    trains = [r for r in runs if "ssd_tpu_torch.training.train" in r["cmd"]]
+    evals = [r for r in runs if "ssd_tpu_torch.evaluation.evaluate" in r["cmd"]]
+    silent = [r["cmd"] for r in trains if "probe_s_" in r["cmd"] or "stage2_silent" in r["cmd"]]
+    check(len(trains) == 6 and len(evals) == want and len(silent) == 3,
+          f"sweep: {len(trains)} trainings ({len(silent)} silent), {len(evals)} evals")
+    check(all(f"--init-checkpoint {seed} " in c + " " for c in silent)
+          and all(r["init_checkpoint"] == seed for r in records if r["dataset"] == "silent"),
+          f"sweep: the silent runs did not all start from the best stage-2 voiced {seed}")
+    check("LM unavailable" in log and not any(r["decoder_name"] == LM_ENTRY["name"]
+                                              for r in records),
+          "sweep: the LM entry was not skipped")
+    off_card = [r["cmd"] for r in trains
+                if not re.search(r"Train batches: .* device cuda:\d", r["out"])]
+    off_card += [r["cmd"] for r in evals if not re.search(r"Decoder: .* device cuda:\d", r["out"])]
+    check(all(r["cmd"].endswith("--device cuda") or "--device cuda " in r["cmd"] for r in runs)
+          and not off_card, f"sweep: children whose log does not name the card: {off_card}")
+    best = {d: pick_best(records, d) for d in ("voiced", "silent")}
+    print(f"[sweep] 20b {len(trains)} trainings ({len(silent)} from {seed}), {len(evals)} evals "
+          f"(LM entries skipped), every child on {card.split(',')[0]} (--device cuda; each "
+          f"trainer's and eval's log names cuda); {len(records)} records; best voiced "
+          f"{best['voiced']['train_run']} {best['voiced']['decoder_name']} CER "
+          f"{best['voiced']['cer']:.4f}, best silent {best['silent']['train_run']} "
+          f"{best['silent']['decoder_name']} CER {best['silent']['cer']:.4f} (random data)")
+    for r in trains:
+        gaps = np.diff([r["first"], *r["epochs"]]) if r["epochs"] else []
+        print(f"[sweep] 20b {r['cmd'].split('--run-dir ')[1].split()[0].split('/')[-1]}: "
+              f"{r['seconds']:.2f} s, first log line after {r['first']:.2f} s, "
+              f"{len(r['epochs'])} epochs, an epoch's wall (train, val, checkpoint) "
+              f"p50 {np.median(gaps) if len(gaps) else float('nan'):.2f} s")
+    secs = ", ".join(f"{r['seconds']:.2f}" for r in evals)
+    firsts = ", ".join(f"{r['first']:.2f}" for r in evals)
+    print(f"[sweep] 20b evals {secs} s (first log line after {firsts} s); all children "
+          f"{sum(r['seconds'] for r in runs):.2f} s, start-up to the first log line "
+          f"{sum(r['first'] for r in runs):.2f} s; host clock; {card}")
+    return {"records": records, "children": len(runs)}
+
+
+def sweep_average(wd: Path, records: list, card: str) -> dict:
+    """Phase 20d: the best stage-2 silent run's ``best`` and ``last``
+    averaged by the CLI, bit-equal to a float64 mean taken here, then
+    evaluated in-process on the card from raw EMG (launches counted),
+    log-probs held to a CPU forward of the same weights."""
+    from ssd_tpu_torch.experiments.orchestrate import pick_best
+
+    run = wd / Path(pick_best(records, "silent", "stage2")["checkpoint_path"]).parent
+    out = wd / "results/checkpoints/silent_average"
+    cmd = [sys.executable, "-m", "ssd_tpu_torch.training.average_checkpoints",
+           "--checkpoints", str(run / "best"), str(run / "last"), "--output", str(out)]
+    proc = subprocess.run(cmd, cwd=wd, env=dict(os.environ, PYTHONPATH=str(REPO_ROOT)),
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        print(proc.stderr[-4000:])
+        raise SmokeFailure(f"average_checkpoints exited {proc.returncode}")
+    parts = [load_checkpoint(run / d) for d in ("best", "last")]
+    avg = load_checkpoint(out / "last")
+    bad = [k for k, t in avg["state_dict"].items() if not torch.equal(
+        t, ((parts[0]["state_dict"][k].double() + parts[1]["state_dict"][k].double()) / 2)
+        .to(t.dtype))]
+    check(not bad and set(avg["state_dict"]) == set(parts[0]["state_dict"]),
+          f"average: {len(bad)} tensors differ from the float64 mean, e.g. {bad[:3]}")
+    check("optimizer" not in avg and avg["epoch"] == max(p["epoch"] for p in parts)
+          and avg["step"] == max(p["step"] for p in parts),
+          f"average: epoch {avg.get('epoch')} step {avg.get('step')} keys {sorted(avg)}")
+    cfg = load_config(out / "config.json")
+    check(cfg == load_config(run / "config.json"), "average: config.json is not the run's")
+    check(cfg["data"].get("train_from_raw") is True and cfg["model"]["encoder"].get(
+        "attention_impl") == "fused", "average: not a raw-EMG fused/pallas checkpoint")
+
+    L = cfg["model"]["encoder"]["num_layers"]
+    reference = cpu_log_probs(out / "last", cfg)
+    seen = []
+    with captured_decodes(seen):
+        reset_counts()
+        ev.main(["--checkpoint", str(out / "last"), "--device", "cuda", "--decoder", "greedy",
+                 "--batch-size", str(EVAL_BATCH), "--output", str(wd / "results/eval/average")])
+        c = counts()
+    batches = len(seen)
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(logmel=batches, attention_fwd=L * batches, depthwise_fwd=L * batches)
+    check(batches == len(reference) == 2 and c == want,
+          f"average eval: {batches} batches launched {c}, expected {want}")
+    errs = []
+    for (kwargs, lp, ol, decoded), (lp_cpu, ol_cpu) in zip(seen, reference):
+        check(lp.is_cuda and torch.equal(ol.cpu(), ol_cpu), "average eval: out lengths differ")
+        errs.append(float((lp.cpu() - lp_cpu).abs().max()))
+        check(close(lp.cpu(), lp_cpu, **LOGPROB_TOL),
+              f"average eval: card vs CPU log-probs max abs err {errs[-1]} > {LOGPROB_TOL}")
+        check(decoded == decoding.build_decoder(**kwargs)(lp.cpu(), ol.cpu()),
+              "average eval: the card's greedy texts differ from the CPU decoder's")
+    metrics = json.loads((wd / "results/eval/average/metrics.json").read_text())
+    print(f"[sweep] 20d {run.name} best (epoch {parts[0].get('epoch')}) + last (epoch "
+          f"{parts[1].get('epoch')}) averaged: {len(avg['state_dict'])} tensors torch.equal to "
+          f"the float64 mean, epoch {avg['epoch']} step {avg['step']}, no optimizer; evaluated "
+          f"in-process on the card from raw EMG, {metrics['data']['num_samples']} utterances in "
+          f"{batches} batches, CER {metrics['cer']:.4f}; log-probs vs the CPU forward max abs err "
+          f"{max(errs):.3e} (tol {LOGPROB_TOL}); launches {({k: v for k, v in c.items() if v})}; "
+          f"{card}")
+    return c
+
+
+def sweep_visualize(wd: Path) -> None:
+    """Phase 20e: the feature visualizer on one cached utterance (host only),
+    or a skip line where matplotlib is not installed."""
+    if importlib.util.find_spec("matplotlib") is None:
+        print(json.dumps({"phase": "20e", "skipped": "matplotlib not installed"}))
+        return
+    utt = "voiced_parallel_data/s1/0_0"
+    cmd = [sys.executable, "-m", "ssd_tpu_torch.evaluation.visualize", "--features-root",
+           str(wd / "data/features"), "--utterance-id", utt, "--out-dir", str(wd / "plots"),
+           "--umap"]
+    proc = subprocess.run(cmd, cwd=wd, env=dict(os.environ, PYTHONPATH=str(REPO_ROOT)),
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"visualize exited {proc.returncode}: {proc.stderr[-2000:]}")
+    sizes = {s: (wd / "plots" / f"{utt.replace('/', '_')}_{s}.png").stat().st_size
+             for s in ("emg", "emg_teacher", "teacher_umap")}
+    check(all(sizes.values()), f"visualize: empty plots {sizes}")
+    print(f"[sweep] 20e visualize on {utt}: PNG bytes {sizes}")
+
+
+def phase_sweep(root: Path, train_dir: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 20: the two-stage experiment sweep on the card (setup, sweep,
+    resume, average, visualize); returns the in-process eval's launches."""
+    steps = {}
+    t0 = time.perf_counter()
+    sweep_workdir(root, train_dir, rng)
+    steps["20a setup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines = orchestrate(root)
+    steps["20b sweep"] = time.perf_counter() - t0
+    swept = sweep_check(root, lines, card)
+    t0 = time.perf_counter()
+    again = orchestrate(root, "--resume")
+    steps["20c resume"] = time.perf_counter() - t0
+    records = json.loads((root / "results/experiments/summary.json").read_text())
+    check(children(again) == [] and any("skipping" in line for _, line in again)
+          and records == swept["records"],
+          f"resume: {len(children(again))} children started, records "
+          f"{'unchanged' if records == swept['records'] else 'changed'}")
+    print(f"[sweep] 20c --resume: no child started, {len(records)} records unchanged, "
+          f"{steps['20c resume']:.2f} s")
+    t0 = time.perf_counter()
+    c = sweep_average(root, records, card)
+    steps["20d average+eval"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep_visualize(root)
+    steps["20e visualize"] = time.perf_counter() - t0
+    print(f"[sweep] 20b {swept['children']} child processes in {steps['20b sweep']:.2f} s")
+    print("[sweep] phase 20 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    return c
+
+
+def cache_children_bytecode(run_dir: Path) -> None:
+    """Let the Python processes this run starts (torchrun ranks, the sweep's
+    children) write and reuse compiled bytecode under ``run_dir``: where the
+    environment forbids writing it (``PYTHONDONTWRITEBYTECODE``) and the
+    installed packages ship none, every child compiles torch's sources
+    again, ~3 s of its start-up on the card machine."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(run_dir / "pycache")
+
+
 def parallel_only() -> int:
     """``chip_smoke.py --parallel-only``: the kernels' build, phase 18 and
     phase 19c alone (the corpora and checkpoint made as phases 7, 11 and 15
@@ -4479,6 +4792,7 @@ def parallel_only() -> int:
     card = phase_build()
     rng = np.random.default_rng(SEED)
     root = Path(tempfile.mkdtemp(prefix="ssd_chip_smoke_parallel_"))
+    cache_children_bytecode(root)
     try:
         t0 = time.perf_counter()
         train_dir = root / "train"
@@ -4523,6 +4837,7 @@ def main() -> int:
     card = timed("build", phase_build)
     entry = timed("kernel", phase_kernel, rng)
     run_dir = Path(tempfile.mkdtemp(prefix="ssd_chip_smoke_"))
+    cache_children_bytecode(run_dir)
     try:
         ckpt = build_run_dir(run_dir)
         engines, batches, launches = timed("engine+server", phase_main_path, ckpt, rng)
@@ -4552,11 +4867,12 @@ def main() -> int:
                       card)
         piped = timed("workers+pipeline", phase_pipeline_workers, run_dir / "pipe", train_dir,
                       rng, card)
+        swept = timed("experiment sweep", phase_sweep, run_dir / "sweep", train_dir, rng, card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     entry["launches"] += (evaluated["logmel"] + lm_served["logmel"] + streamed["logmel"]
                           + quantized["logmel"] + prepared["logmel"] + multi["logmel"]
-                          + piped["logmel"])
+                          + piped["logmel"] + swept["logmel"])
     kernels = [entry]
     for name in ("alpha", "beta"):
         e = ctc_out["entries"][name]
@@ -4566,10 +4882,11 @@ def main() -> int:
     for name in ("attention_fwd", "attention_bwd", "depthwise_fwd", "depthwise_bwd"):
         e = new_out["entries"][name]
         # phase 11's two counted runs, phase 12's, 13's, 14's, 16's, 17's,
-        # 18's (every rank of its distributed trainer) and 19's
+        # 18's (every rank of its distributed trainer), 19's and 20's
+        # in-process evaluation (the sweep's children count their own)
         e["launches"] = (served[name] + trained[name] + evaluated[name] + lm_served[name]
                          + streamed[name] + quantized[name] + prepared[name] + multi[name]
-                         + piped[name])
+                         + piped[name] + swept[name])
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
     check(quantized["int_mm"] > 0, "torch._int_mm was never launched on the quantized path")

@@ -295,9 +295,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         host_lm=args.lm_backend == "host",
     )
     logger.info(
-        "Decoder: %s | LM: %s | width %s | α %.2f β %.2f | prune %.1f | blank_bias %.2f | top_k %s",
+        "Decoder: %s | LM: %s | width %s | α %.2f β %.2f | prune %.1f | blank_bias %.2f | top_k %s"
+        " | device %s",
         decoder_type, lm_path or "none", beam_width, alpha, beta, prune, blank_bias,
-        token_top_k or "exact",
+        token_top_k or "exact", device,
     )
 
     out = evaluate_checkpoint(

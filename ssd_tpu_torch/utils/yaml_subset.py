@@ -1,7 +1,9 @@
-"""A reader for the YAML subset the repository's configs are written in.
+"""A reader and a writer for the YAML subset the repository's configs are
+written in.
 
-The card machine has no ``pyyaml``, so the port reads its own YAML. The
-subset is what ``configs/*.yaml`` and ``configs/experiments/*.yaml`` use:
+The card machine has no ``pyyaml``, so the port reads and writes its own
+YAML. The subset is what ``configs/*.yaml`` and ``configs/experiments/*.yaml``
+use:
 
 * block mappings by indentation, and ``- `` block sequences (of scalars,
   mappings or sequences; a sequence may sit at its key's own indentation);
@@ -22,10 +24,18 @@ and line, never a guess: anchors, aliases, tags, block scalars (``|``,
 ``>``), directives, several documents, complex keys, escape sequences,
 multi-line scalars and flow collections, sexagesimal numbers, timestamps
 and merge keys.
+
+:func:`write_yaml` writes block style, as ``yaml.safe_dump(data,
+sort_keys=False)`` lays it out (mappings in insertion order, sequences at
+their key's indentation, ``[]`` / ``{}`` when empty), and quotes every
+string that would not read back as itself; both :func:`read_yaml` and
+``yaml.safe_load`` read its output back as the data written.
 """
 
 from __future__ import annotations
 
+import math
+import os
 import re
 from typing import Any, List, NamedTuple, Tuple
 
@@ -304,3 +314,84 @@ def read_yaml(text: str, source: str = "<string>") -> Any:
     """Parse ``text`` (the repository's YAML subset) as ``yaml.safe_load``
     would; ``source`` names it in errors."""
     return _Reader(text, source).document()
+
+
+# plain (unquoted) strings the writer emits: printable ASCII that opens no
+# construct and holds no comment, key or flow indicator
+_PLAIN = re.compile(r"[A-Za-z0-9_./(=+~$^<\\][A-Za-z0-9_./()=+~$^<>;,\\ -]*")
+
+
+def _scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        if "." not in text and "e" in text:  # 1e-05 → 1.0e-05: YAML 1.1 floats need a dot
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(value, os.PathLike):
+        value = os.fspath(value)
+    if not isinstance(value, str):
+        raise TypeError(f"cannot write {type(value).__name__} {value!r} as YAML")
+    if any(not c.isprintable() for c in value):
+        raise ValueError(f"{value!r}: a string with control characters is outside the YAML subset")
+    if _PLAIN.fullmatch(value) and not value.endswith(" "):
+        try:
+            if _resolve(value, "") == value:
+                return value
+        except ValueError:  # timestamps, '<<', '=': quoted below
+            pass
+    return "'" + value.replace("'", "''") + "'"
+
+
+def _block(value: Any, indent: int, lines: List[str]) -> None:
+    """Append the lines of a non-empty mapping or sequence at ``indent``."""
+    pad = " " * indent
+    if isinstance(value, dict):
+        for key, item in value.items():
+            head = f"{pad}{_scalar(key)}:"
+            if isinstance(item, dict) and item:
+                lines.append(head)
+                _block(item, indent + 2, lines)
+            elif isinstance(item, (list, tuple)) and item:
+                lines.append(head)
+                _block(item, indent, lines)  # a sequence sits at its key's indentation
+            else:
+                lines.append(f"{head} {_inline(item)}")
+        return
+    for item in value:
+        if isinstance(item, (dict, list, tuple)) and item:
+            start = len(lines)
+            _block(item, indent + 2, lines)
+            lines[start] = f"{pad}- {lines[start][indent + 2:]}"
+        else:
+            lines.append(f"{pad}- {_inline(item)}")
+
+
+def _inline(value: Any) -> str:
+    if isinstance(value, dict):
+        return "{}"  # only empty collections are written inline
+    if isinstance(value, (list, tuple)):
+        return "[]"
+    return _scalar(value)
+
+
+def write_yaml(data: Any) -> str:
+    """``data`` (dicts, lists, tuples, strings, paths, numbers, booleans and
+    None) as block-style YAML text that :func:`read_yaml` and
+    ``yaml.safe_load`` read back equal to it (tuples as lists, paths as
+    strings). A string with a line break or another control character, and
+    any other type, raises."""
+    if isinstance(data, (dict, list, tuple)) and data:
+        lines: List[str] = []
+        _block(data, 0, lines)
+        return "\n".join(lines) + "\n"
+    return _inline(data) + "\n"

@@ -23,6 +23,9 @@ from ssd_tpu_torch.training import train as ttrain
 
 from .test_torch_ctc_loss import GRAD_ATOL, LOSS_TOL, _batch
 from .test_torch_training import _corpus
+from .torch_procs import no_stray_processes  # noqa: F401  (the fixture)
+
+pytestmark = pytest.mark.usefixtures("no_stray_processes")
 
 torch.set_num_threads(1)
 

@@ -23,6 +23,9 @@ from ssd_tpu_torch.training.checkpoint import save_checkpoint
 
 from .test_torch_logging import restored_logging
 from .test_torch_streaming import CHANNELS, CONFIGS, shared_weights, tiny_cfg
+from .torch_procs import no_stray_processes  # noqa: F401  (the fixture)
+
+pytestmark = pytest.mark.usefixtures("no_stray_processes")
 
 torch.set_num_threads(1)
 

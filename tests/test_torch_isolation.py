@@ -2,14 +2,20 @@
 ``chip_smoke`` pulls in neither JAX (nor flax, optax, orbax) nor any module
 of ``ssd_tpu``, and none of the packages the card machine lacks (``yaml``,
 ``pandas``, ``tensorboardX``, ``safetensors``, ``transformers``,
-``huggingface_hub``, ``ml_dtypes``): the port reads YAML and safetensors
-itself, imports pandas and tensorboardX lazily, and needs none of the
-rest."""
+``huggingface_hub``, ``ml_dtypes``, ``matplotlib``, ``umap``): the port
+reads and writes YAML and reads safetensors itself, imports pandas,
+tensorboardX, matplotlib and umap lazily, and needs none of the rest."""
 
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+
+from .torch_procs import no_stray_processes  # noqa: F401  (the fixture)
+
+pytestmark = pytest.mark.usefixtures("no_stray_processes")
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -23,13 +29,18 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 missing = [m for m in ("ssd_tpu_torch.parallel.mesh", "ssd_tpu_torch.parallel.partition",
-                       "ssd_tpu_torch.parallel.collectives", "ssd_tpu_torch.parallel.replicas")
+                       "ssd_tpu_torch.parallel.collectives", "ssd_tpu_torch.parallel.replicas",
+                       "ssd_tpu_torch.experiments.config_builder",
+                       "ssd_tpu_torch.experiments.orchestrate",
+                       "ssd_tpu_torch.training.average_checkpoints",
+                       "ssd_tpu_torch.evaluation.visualize")
            if m not in names]
 assert not missing, missing
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pandas", "tensorboardX",
-                           "safetensors", "transformers", "huggingface_hub", "ml_dtypes")
+                           "safetensors", "transformers", "huggingface_hub", "ml_dtypes",
+                           "matplotlib", "umap")
     or m == "ssd_tpu"
     or m.startswith("ssd_tpu.")
 )
@@ -45,5 +56,5 @@ def test_port_imports_no_jax_and_no_ssd_tpu():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 56  # the package, its 9 subpackages and 46 modules
+    assert int(n_modules) >= 61  # the package, its 10 subpackages and 50 modules
     assert bad == "[]", f"the port imported {bad}"

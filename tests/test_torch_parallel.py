@@ -35,6 +35,9 @@ from ssd_tpu_torch.utils.config import load_config
 from .test_torch_data import _assert_same_batches, _loaders, _rows
 from .test_torch_training import NOISE_ONLY, _cfg, _corpus
 from .torch_parallel_worker import run_group
+from .torch_procs import no_stray_processes  # noqa: F401  (the fixture)
+
+pytestmark = pytest.mark.usefixtures("no_stray_processes")
 
 torch.set_num_threads(1)
 

@@ -29,6 +29,9 @@ from .test_torch_training import (
     _cfg, _jax_setup,
 )
 from .torch_parallel_worker import run_group
+from .torch_procs import no_stray_processes  # noqa: F401  (the fixture)
+
+pytestmark = pytest.mark.usefixtures("no_stray_processes")
 
 torch.set_num_threads(1)
 

@@ -49,6 +49,9 @@ from .test_torch_training import (
     BLANK, GRAD_FLOOR, GRAD_REL, IN_DIM, LAMBDAS, LOSS_RTOL, NOISE_ONLY, VOCAB, _cfg, _corpus,
 )
 from .torch_parallel_worker import run_group
+from .torch_procs import no_stray_processes  # noqa: F401  (the fixture)
+
+pytestmark = pytest.mark.usefixtures("no_stray_processes")
 
 torch.set_num_threads(1)
 

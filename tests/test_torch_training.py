@@ -30,6 +30,9 @@ from ssd_tpu_torch.training import train as ttrain
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, load_params_partial, save_checkpoint
 
 from .test_torch_logging import restored_logging
+from .torch_procs import no_stray_processes  # noqa: F401  (the fixture)
+
+pytestmark = pytest.mark.usefixtures("no_stray_processes")
 
 torch.set_num_threads(1)
 

@@ -27,6 +27,9 @@ from ssd_tpu_torch.training.checkpoint import load_checkpoint
 
 from .test_torch_data import _rows
 from .test_torch_training import _corpus
+from .torch_procs import no_stray_processes, stray_processes  # noqa: F401  (the fixture)
+
+pytestmark = pytest.mark.usefixtures("no_stray_processes")
 
 torch.set_num_threads(1)
 
@@ -284,3 +287,25 @@ if __name__ == "__main__":
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) > 0
     assert not marker.exists()
+
+
+def test_the_stray_process_guard_sees_an_open_pool(tmp_path):
+    """``tests/torch_procs.py``'s guard, which every port test that starts
+    processes runs after itself: an open pool's workers (forked by the fork
+    server, which shares their command line) are reported; after ``close``
+    nothing is, the fork server and resource tracker aside."""
+    _rows(tmp_path)
+    kw = dict(_common(tmp_path), shuffle=False, batch_size=1, include_teacher=False)
+    before = {pid for pid, _, _ in stray_processes()}
+    loader = tds.make_dataloader(vocab=default_vocab(), num_workers=2, **kw)
+    try:
+        next(iter(loader))
+        workers = [p for p in stray_processes() if p[0] not in before]
+        assert len(workers) == 2, workers
+        assert all("multiprocessing.forkserver" in cmd for _, _, cmd in workers)
+    finally:
+        loader.close()
+    deadline = time.time() + 10.0
+    while [p for p in stray_processes() if p[0] not in before] and time.time() < deadline:
+        time.sleep(0.05)
+    assert [p for p in stray_processes() if p[0] not in before] == []
