@@ -174,9 +174,10 @@ failing loudly:
              3 072, ``compute_dtype: bfloat16``, ``remat``,
              ``scan_layers``, raw EMG, bf16 teacher features), cut in its
              ``parallel:`` section (one device: phase 18b runs it as
-             shipped when there are two cards) and in depth, 8 of its 12
-             blocks (``LARGE_BLOCKS``: the run's time budget since phase
-             20; 166 M parameters at 12), random seeded weights: (a) the
+             shipped when there are two cards) and in depth, 4 of its 12
+             blocks (``LARGE_BLOCKS``: the run's time budget; 166 M
+             parameters at 12, which phase 21 serves), random seeded
+             weights: (a) the
              bf16 instances of the attention and depthwise kernels against
              their plain bf16 versions at B = 32, T′ 384 (dropout
              multiplier) and B = 8, T′ 625 (H 12, hd 64, C 768, K 15): the
@@ -306,7 +307,8 @@ failing loudly:
              voiced and silent base configs at full width read by the
              port's YAML reader and written back by its writer with only
              the data paths, ``attention_impl: fused`` /
-             ``depthwise_impl: pallas`` and (silent) ``train_from_raw``
+             ``depthwise_impl: pallas``, (silent) ``train_from_raw`` and
+             ``max_epochs`` (``SWEEP_EPOCHS``: the run's time budget)
              changed, one 1-epoch probe variant a dataset, and slim decoder
              grids (greedy, beam 50, one LM entry); (b) ``python -m
              ssd_tpu_torch.experiments.orchestrate --probe-batches 2
@@ -325,6 +327,18 @@ failing loudly:
              on one cached utterance, or ``{"phase": "20e", "skipped":
              "matplotlib not installed"}``. It prints each sub-step's
              seconds.
+21. layout conversion — ``configs/tpu_scaled_large.yaml`` at full width
+             and full depth (12 blocks, bf16, ``scan_layers`` as shipped,
+             fused/pallas; random weights from a seed) saved, converted to
+             unrolled and back to scan by ``ssd_tpu_torch.training.
+             convert_layout.main``, and each checkpoint served from the same
+             raw EMG on the card (``InferenceEngine.forward``, launches
+             counted): the round trip's log-probs ``torch.equal`` to the
+             original's, the unrolled one's within atol 5e-2 (the fp32
+             carry into block_0 that ``scan_layers`` adds; not equal); the
+             same with ``configs/tpu_fast_plus.yaml`` in fp32, where the
+             three are ``torch.equal``. It prints its seconds, launches and
+             largest log-prob gap.
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
@@ -393,6 +407,7 @@ from ssd_tpu_torch.serving.engine import InferenceEngine
 from ssd_tpu_torch.serving.export import ExportedTranscriber, export_checkpoint
 from ssd_tpu_torch.serving.server import encode_npy, serve
 from ssd_tpu_torch.serving.streaming import ChunkedStreamingTranscriber
+from ssd_tpu_torch.training import convert_layout
 from ssd_tpu_torch.training import train as trainer
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from ssd_tpu_torch.training.schedules import build_optimizer
@@ -2384,9 +2399,9 @@ BF16_LOSS_RTOL = 1e-2  # card vs CPU train step, both bf16
 # gradient: within twice the CPU's own bf16-vs-fp32 gap, plus 1 %
 BF16_GRAD_NOISE_FACTOR, BF16_GRAD_FLOOR = 2.0, 1e-2
 LARGE_RATE_STEPS = 5
-# blocks of tpu_scaled_large (12 as shipped) in phases 15, 16 and 19: the run's time budget;
-# a multiple of 4 keeps phase 19c's 4-stage pipeline whole
-LARGE_BLOCKS = 8
+# blocks of tpu_scaled_large (12 as shipped) in phases 15, 16 and 19: the run's time budget
+# (phase 21 serves all 12); a multiple of 4 keeps phase 19c's 4-stage pipeline whole
+LARGE_BLOCKS = 4
 LARGE_PARITY_BLOCKS, LARGE_PARITY_B = 2, 2  # card vs CPU step: depth cut for the CPU's sake
 
 
@@ -2997,7 +3012,8 @@ def phase_large(root: Path, rng: np.random.Generator, card: str) -> dict:
     print(f"[large] cuts: parallel: → {cfg['parallel']} (one device: model 1, fsdp and sequence "
           f"off — ROADMAP Q1.10); random weights from seed {SEED}; a synthetic raw-EMG corpus "
           f"({LARGE_TRAIN} train + {LARGE_VAL} val utterances of {LARGE_SAMPLES[0]}–"
-          f"{LARGE_SAMPLES[1] - 1} samples); depth not cut on the card")
+          f"{LARGE_SAMPLES[1] - 1} samples); depth {LARGE_BLOCKS} of its 12 blocks (phase 21 "
+          f"serves all 12)")
     entries = large_kernels(rng, card, steps)
     t0 = time.perf_counter()
     model = large_serving_model()
@@ -3042,7 +3058,7 @@ QUANT_MODES = ("int8", "int8_prequant")
 QUANT_NOISE = 2 ** 0.5
 QUANT_TOL = 1e-3
 PREQUANT_TOL = dict(rtol=1e-5, atol=1e-6)  # int8_prequant vs int8 (tests/test_quant.py's bound)
-QUANT_RUNS = 5  # alternating transcribes a configuration and batch: the p50 is their median
+QUANT_RUNS = 3  # alternating transcribes a configuration and batch: the p50 is their median
 TWO_WINDOW_SAMPLES = 8000  # 769 frames: two windows with S = 512
 T_SERVE = 625  # T' of the 12 800-sample bucket after both models' ×2 subsampler
 
@@ -4514,6 +4530,7 @@ def phase_pipeline_workers(root: Path, train_dir: Path, rng: np.random.Generator
 SWEEP_SILENT = (12, 8)  # silent utterances beside phase 7's 20 voiced: (all, train)
 SWEEP_PROBE_BATCHES = 2  # --probe-batches and --probe-batches-silent
 SWEEP_TIMEOUT = 600  # seconds for the sweep's orchestrator and all its children
+SWEEP_EPOCHS = 3  # stage 2's max_epochs (50 as shipped, early stopping after 13–30): the run's time
 LM_ENTRY = {"name": "beam50_lm", "method": "beam", "beam_width": 50, "alpha": 0.5,
             "use_lm": True, "lm_path": "results/lm/char_5gram.arpa"}
 BEAM50 = {"name": "beam50", "method": "beam", "beam_width": 50, "alpha": 0.45}
@@ -4530,7 +4547,8 @@ def sweep_workdir(wd: Path, train_dir: Path, rng: np.random.Generator) -> None:
     index rows and, linked, its feature directories) and 12 silent
     utterances made the same way; the shipped voiced and silent base configs
     read by the port's YAML reader, full width, with only the data paths,
-    the fused/pallas keys and (silent) ``train_from_raw`` changed, written
+    the fused/pallas keys, (silent) ``train_from_raw`` and stage 2's
+    ``max_epochs`` (``SWEEP_EPOCHS``) changed, written
     back by its YAML writer; one probe variant a dataset (1 epoch) and the
     slim decoder grids."""
     data = wd / "data"
@@ -4550,6 +4568,7 @@ def sweep_workdir(wd: Path, train_dir: Path, rng: np.random.Generator) -> None:
         cfg["data"].update(paths)
         if raw:
             cfg["data"]["train_from_raw"] = True
+        cfg["optim"]["max_epochs"] = SWEEP_EPOCHS
         cfg["model"]["encoder"].update(FUSED)
         (wd / "configs" / name).write_text(write_yaml(cfg))
     for dataset in ("voiced", "silent"):
@@ -4785,6 +4804,107 @@ def cache_children_bytecode(run_dir: Path) -> None:
     os.environ["PYTHONPYCACHEPREFIX"] = str(run_dir / "pycache")
 
 
+# ------------------------------------------ layout conversion (phase 21)
+
+CONVERT_B = 8  # raw requests a checkpoint is served: one 12 800-sample bucket
+CONVERT_BF16_ATOL = 5e-2  # unrolled vs scan bf16 log-probs (tests/test_torch_convert_layout.py)
+
+
+def convert_forward(ckpt: Path, reqs: list, counted: Launches, what: str) -> tuple:
+    """``ckpt`` served on the card: the log-probs and lengths of ``reqs``,
+    and the seconds the engine took to load and to run them."""
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_checkpoint(ckpt, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = counts()
+    lp, ol = engine.forward(reqs)
+    torch.cuda.synchronize()
+    counted.add(what, before, 1)
+    return lp, ol, (t1 - t0, time.perf_counter() - t1)
+
+
+def convert_round_trip(root: Path, cfg: dict, input_dim: int, reqs: list, name: str) -> tuple:
+    """``cfg``'s model (a ``scan_layers`` source) saved, converted to
+    unrolled and back to scan with the CLI, and each checkpoint served:
+    (log-probs of source, unrolled, round trip; lengths; launches)."""
+    enc = cfg["model"]["encoder"]
+    check(enc["scan_layers"], f"{name}: the source must scan")
+    L = enc["num_layers"]
+    suffix = "_bf16" if enc.get("compute_dtype") == "bfloat16" else ""
+    counted = Launches({"logmel": 1, f"attention_fwd{suffix}": L, f"depthwise_fwd{suffix}": L})
+    t0 = time.perf_counter()
+    model = build_model(cfg, input_dim=input_dim, vocab_size=48)
+    init_flax_style(model, torch.Generator().manual_seed(SEED))
+    root.mkdir(parents=True, exist_ok=True)
+    default_vocab().to_json(root / "vocab.json")
+    cfg = dict(cfg, data={"vocab": str(root / "vocab.json")})
+    save_checkpoint(root / "scan", model.state_dict(), cfg, epoch=1, step=2)
+    del model
+    made = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_layout.main(["--checkpoint", str(root / "scan" / "last"), "--to", "unrolled",
+                         "--output", str(root / "unrolled")])
+    convert_layout.main(["--checkpoint", str(root / "unrolled" / "last"), "--to", "scan",
+                         "--output", str(root / "back")])
+    converted = time.perf_counter() - t0
+    for layout, want in (("unrolled", False), ("back", True)):
+        saved = json.loads((root / layout / "config.json").read_text())["model"]["encoder"]
+        check(saved["scan_layers"] is want,
+              f"{name}: {layout}'s scan_layers {saved['scan_layers']}")
+        payload = load_checkpoint(root / layout / "last")
+        check((payload["epoch"], payload["step"]) == (1, 2), f"{name}: {layout}'s counters")
+    out = [convert_forward(root / layout / "last", reqs, counted, f"{name} {layout}")
+           for layout in ("scan", "unrolled", "back")]
+    lengths = out[0][1]
+    check(all(torch.equal(o[1], lengths) for o in out), f"{name}: out lengths differ")
+    served = ", ".join(f"{load:.2f} + {fwd:.2f}" for _, _, (load, fwd) in out)
+    print(f"[convert] {name}: model built and saved {made:.2f} s, two conversions "
+          f"{converted:.2f} s, three checkpoints served (engine load + forward) {served} s")
+    return [o[0] for o in out], lengths, counted.total
+
+
+def valid_gap(a: torch.Tensor, b: torch.Tensor, lengths: torch.Tensor) -> float:
+    return max(float((a[i, :n] - b[i, :n]).abs().max()) for i, n in enumerate(lengths.tolist()))
+
+
+def phase_convert(root: Path, rng: np.random.Generator, card: str) -> dict:
+    """Phase 21: the layout converter on tpu_scaled_large (bf16, full depth)
+    and tpu_fast_plus (fp32), each checkpoint served on the card.
+    Returns the launches of its counted runs."""
+    reqs = [rng.normal(size=(int(n), CHANNELS)).astype(np.float32)
+            for n in rng.integers(9000, 12001, size=CONVERT_B)]
+    large = load_config(LARGE_PATH)
+    large = {"model": large["model"], "features": large["features"]}
+    large["model"]["encoder"].update(FUSED)
+    enc = large["model"]["encoder"]
+    check(enc["num_layers"] == 12 and enc["compute_dtype"] == "bfloat16" and enc["scan_layers"],
+          f"{LARGE_PATH.name}: expected 12 bf16 blocks under scan_layers")
+    (scan, unrolled, back), lengths, launches = convert_round_trip(
+        root / "large", large, enc["input_dim"], reqs, "tpu_scaled_large")
+    check(torch.equal(back, scan), "tpu_scaled_large: the round trip's log-probs differ")
+    gap = valid_gap(unrolled, scan, lengths)
+    check(0 < gap < CONVERT_BF16_ATOL,
+          f"tpu_scaled_large: unrolled vs scan log-prob gap {gap} not in (0, {CONVERT_BF16_ATOL})")
+    print(f"[convert] tpu_scaled_large (12 blocks, bf16, fused/pallas, B {CONVERT_B}): round trip "
+          f"torch.equal to the source; unrolled vs scan largest log-prob gap {gap:.6f} "
+          f"(atol {CONVERT_BF16_ATOL}; log-probs in [{float(scan.min()):.3f}, "
+          f"{float(scan.max()):.3f}]); {card}")
+
+    fast = {"model": model_block(scan_layers=True, **FUSED),
+            "features": shipped_config()["features"]}
+    (scan, unrolled, back), _, fast_launches = convert_round_trip(
+        root / "fast", fast, encoder_key("input_dim"), reqs, "tpu_fast_plus")
+    check(torch.equal(unrolled, scan) and torch.equal(back, scan),
+          "tpu_fast_plus (fp32): the three checkpoints' log-probs differ")
+    print(f"[convert] tpu_fast_plus ({fast['model']['encoder']['num_layers']} blocks, fp32, "
+          f"fused/pallas, B {CONVERT_B}): source, unrolled and round trip torch.equal")
+    for k, v in fast_launches.items():
+        launches[k] += v
+    print(f"[convert] launches: { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def parallel_only() -> int:
     """``chip_smoke.py --parallel-only``: the kernels' build, phase 18 and
     phase 19c alone (the corpora and checkpoint made as phases 7, 11 and 15
@@ -4868,11 +4988,12 @@ def main() -> int:
         piped = timed("workers+pipeline", phase_pipeline_workers, run_dir / "pipe", train_dir,
                       rng, card)
         swept = timed("experiment sweep", phase_sweep, run_dir / "sweep", train_dir, rng, card)
+        converted = timed("layout conversion", phase_convert, run_dir / "convert", rng, card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     entry["launches"] += (evaluated["logmel"] + lm_served["logmel"] + streamed["logmel"]
                           + quantized["logmel"] + prepared["logmel"] + multi["logmel"]
-                          + piped["logmel"] + swept["logmel"])
+                          + piped["logmel"] + swept["logmel"] + converted["logmel"])
     kernels = [entry]
     for name in ("alpha", "beta"):
         e = ctc_out["entries"][name]
@@ -4882,16 +5003,16 @@ def main() -> int:
     for name in ("attention_fwd", "attention_bwd", "depthwise_fwd", "depthwise_bwd"):
         e = new_out["entries"][name]
         # phase 11's two counted runs, phase 12's, 13's, 14's, 16's, 17's,
-        # 18's (every rank of its distributed trainer), 19's and 20's
-        # in-process evaluation (the sweep's children count their own)
+        # 18's (every rank of its distributed trainer), 19's, 20's
+        # in-process evaluation (the sweep's children count their own) and 21's
         e["launches"] = (served[name] + trained[name] + evaluated[name] + lm_served[name]
                          + streamed[name] + quantized[name] + prepared[name] + multi[name]
-                         + piped[name] + swept[name])
+                         + piped[name] + swept[name] + converted[name])
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append(e)
     check(quantized["int_mm"] > 0, "torch._int_mm was never launched on the quantized path")
     for name, e in large.items():
-        e["launches"] += piped[name]  # phase 19b's pipelined bf16 runs
+        e["launches"] += piped[name] + converted[name]  # phase 19b's pipelined and 21's bf16 runs
     kernels += list(large.values())
     print(f"[time] total {sum(seconds.values()):.2f} s")
     print(json.dumps({"kernels": kernels}))

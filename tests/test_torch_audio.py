@@ -1,8 +1,10 @@
 """The port's host library, FLAC decoder and audio loader against the JAX
 package's: FLAC decodes bit-equal to ``ssd_tpu.data.flac.decode_flac`` on
-files from ``tests/test_native.py``'s encoder (mono verbatim, constant and
-fixed-order-2 subframes, and stereo), ``load_audio`` equal with and without
-resampling, and the native edit distance equal to the Python program."""
+files from ``tests/torch_jax_native.py``'s encoder (mono verbatim, constant
+and fixed-order-2 subframes, and stereo), ``load_audio`` equal with and
+without resampling, and the native edit distance equal to the Python
+program. Every test that decodes FLAC through the JAX package first makes
+its native library whole in this process (``jax_native``)."""
 
 import wave
 
@@ -16,7 +18,7 @@ from ssd_tpu_torch.data import flac as tflac
 from ssd_tpu_torch.evaluation import metrics as tmetrics
 from ssd_tpu_torch.utils import native
 
-from .test_native import _encode_flac
+from .torch_jax_native import encode_flac, jax_native
 
 
 def _mono(mode, n=1000, seed=0):
@@ -27,9 +29,10 @@ def _mono(mode, n=1000, seed=0):
 
 @pytest.mark.parametrize("mode", ["verbatim", "constant", "fixed2"])
 def test_flac_mono_bit_equal_to_jax(tmp_path, mode):
+    jax_native()
     data = _mono(mode)
     path = tmp_path / "m.flac"
-    path.write_bytes(_encode_flac([data], mode=mode))
+    path.write_bytes(encode_flac([data], mode=mode))
     got, sr = tflac.decode_flac(path)
     want, want_sr = jflac.decode_flac(path)
     assert (sr, got.dtype, got.shape) == (want_sr, np.float32, (1000,))
@@ -38,10 +41,11 @@ def test_flac_mono_bit_equal_to_jax(tmp_path, mode):
 
 
 def test_flac_stereo_bit_equal_to_jax(tmp_path):
+    jax_native()
     rng = np.random.default_rng(1)
     left, right = (rng.integers(-30000, 30000, size=500).astype(np.int32) for _ in range(2))
     path = tmp_path / "s.flac"
-    path.write_bytes(_encode_flac([left, right], sample_rate=22050))
+    path.write_bytes(encode_flac([left, right], sample_rate=22050))
     got, sr = tflac.decode_flac(path)
     want, _ = jflac.decode_flac(path)
     assert got.shape == (500, 2) and sr == 22050
@@ -68,8 +72,9 @@ def _write_wav(path, samples, sr, channels=1):
 def test_load_audio_equals_jax(tmp_path, fmt, sr):
     rng = np.random.default_rng(2)
     if fmt == "flac":
+        jax_native()
         path = tmp_path / "a.flac"
-        path.write_bytes(_encode_flac([_mono("verbatim", 1500, 3), _mono("verbatim", 1500, 4)],
+        path.write_bytes(encode_flac([_mono("verbatim", 1500, 3), _mono("verbatim", 1500, 4)],
                                       sample_rate=sr))
     else:
         channels = 2 if fmt == "wav_stereo" else 1

@@ -21,7 +21,7 @@ from ssd_tpu_torch.data import preprocessing as tpre
 from ssd_tpu_torch.models import wavlm as twavlm
 from ssd_tpu_torch.ops.featurizer import FeaturizerConfig
 
-from .test_native import _encode_flac
+from .torch_jax_native import encode_flac, jax_native
 from .test_torch_logging import restored_logging
 from .test_wavlm import SMALL, torch_wavlm  # noqa: F401  (fixture)
 
@@ -67,7 +67,7 @@ def raw_tree(tmp_path):
         if kind == "flac":
             rel = f"voiced_parallel_data/s1/{i}_0_audio.flac"
             pcm = rng.integers(-8000, 8000, size=5000).astype(np.int32)
-            (root / rel).write_bytes(_encode_flac([pcm], sample_rate=16000))
+            (root / rel).write_bytes(encode_flac([pcm], sample_rate=16000))
         elif kind:
             sr = 16000 if kind == "wav16" else 22050
             rel = f"voiced_parallel_data/s1/{i}_0_audio.wav"
@@ -175,6 +175,7 @@ def test_teacher_cli_matches_jax(raw_tree, tmp_path, torch_wavlm, monkeypatch): 
     safetensors writer: the rows with audio (WAV at 16 and 22.05 kHz, FLAC)
     against ``process_teacher_rows`` with the same weights in flax."""
     root, index = raw_tree
+    jax_native()  # the FLAC row is decoded by the JAX package's library
     small = SMALL
     jteacher = jwavlm.WavLMTeacher.from_torch_model(torch_wavlm, layer=2,
                                                     cfg=jwavlm.WavLMConfig(**small))
