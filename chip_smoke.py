@@ -16,7 +16,9 @@ failing loudly:
              the card's name and power limit, and PyTorch's TF32 settings
              (off for matmuls and cuDNN for the whole run: the parity phases
              need fp32; the attention kernels' own products are 3×TF32,
-             which keeps fp32 accuracy). Read ``configs/tpu_fast_plus.yaml``
+             which keeps fp32 accuracy), and the build directory
+             (``--compile-cache`` / ``$SSD_COMPILE_CACHE``, else
+             ``ssd_tpu_torch/_build/``). Read ``configs/tpu_fast_plus.yaml``
              through the port's YAML reader, the configuration of every
              phase below.
 2. kernel  — the log-mel kernel (a shared-memory FFT) against its plain
@@ -102,9 +104,11 @@ failing loudly:
              served; (c) phase 8's card-vs-CPU step and overfit; (d) phase
              9's rate with the four kernels' share of the step. Between (b)
              and (c), reproducible training: ``train_from_config`` twice from
-             one seed in each configuration (2 overfit batches, dropout and
-             SpecAugment on), every logged loss and trained weight equal bit
-             for bit and the cuDNN flags restored after. Phase 9 also prints
+             one seed in each configuration (2 epochs of 2 overfit batches,
+             dropout and SpecAugment on; the second run with
+             ``logging.async_checkpoints: true``), every logged loss and every
+             tensor and counter of ``last`` and ``best`` (weights, AdamW
+             moments) equal bit for bit and the cuDNN flags restored after. Phase 9 also prints
              what the trainer's cuDNN settings (deterministic, no autotune)
              cost the default flagship step (host p50 and device busy, off,
              on, on, off).
@@ -200,8 +204,9 @@ failing loudly:
              (fused) with the engine's tokens, greedy p50; (c) trained by
              ``train_from_config`` on a synthetic raw-EMG corpus (2 steps of
              B = 32 on 768-frame buckets, 1 eval step; with remat the
-             forward kernels launch twice a train step) and the fused
-             checkpoint scored by the eval CLI; (d) step p50, device busy
+             forward kernels launch twice a train step; the shipped
+             ``logging.async_checkpoints: true`` honoured, as its log shows)
+             and the fused checkpoint scored by the eval CLI; (d) step p50, device busy
              and peak memory with remat and without, and (fused) the
              trainer's loss, every gradient and running statistic with
              remat ``full`` and ``dots`` bit-equal to the step without,
@@ -245,7 +250,8 @@ failing loudly:
              (a) the trainer CLI (``trainer.main``) under ``python -m
              torch.distributed.run --nproc-per-node 1`` over NCCL, phase
              7's corpus from raw EMG, tpu_fast_plus fused/pallas, 3 overfit
-             batches, with ``parallel: {}`` and ``{fsdp: true}``, each
+             batches, with ``parallel: {}`` and ``{fsdp: true}`` (one
+             after the other in one launch), each
              against one process's ``train_from_config`` from the same
              seed: losses and trained weights bit-equal (else the gap,
              gated at the CPU tests' tolerances), NCCL seen inside the
@@ -338,7 +344,14 @@ failing loudly:
              carry into block_0 that ``scan_layers`` adds; not equal); the
              same with ``configs/tpu_fast_plus.yaml`` in fp32, where the
              three are ``torch.equal``. It prints its seconds, launches and
-             largest log-prob gap.
+             largest log-prob gap. (b) The trainer's checkpoint of the
+             full-depth tpu_scaled_large state on the card (166.29 M
+             parameters with their AdamW moments, ``last`` + ``best``): the
+             seconds ``save_checkpoint`` holds the training thread against
+             the async ``CheckpointWriter.save`` (pinned buffers new, then
+             reused), the write alone (``finalize``), and bf16 forwards (B
+             32, 768 frames) timed alone and while a write runs; the async
+             ``last`` ``torch.equal`` to the sync one.
 
 Kernel times are CUDA-event means of launches queued behind a device spin
 (``cuda_ms``), which checks that the spin outlasted the queuing.
@@ -362,6 +375,7 @@ import dataclasses
 import functools
 import importlib.util
 import json
+import logging
 import os
 import re
 import shutil
@@ -409,8 +423,9 @@ from ssd_tpu_torch.serving.server import encode_npy, serve
 from ssd_tpu_torch.serving.streaming import ChunkedStreamingTranscriber
 from ssd_tpu_torch.training import convert_layout
 from ssd_tpu_torch.training import train as trainer
-from ssd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+from ssd_tpu_torch.training.checkpoint import CheckpointWriter, load_checkpoint, save_checkpoint
 from ssd_tpu_torch.training.schedules import build_optimizer
+from ssd_tpu_torch.utils import cuda_build
 from ssd_tpu_torch.utils.config import load_config
 from ssd_tpu_torch.utils.yaml_subset import read_yaml, write_yaml
 
@@ -445,6 +460,27 @@ def shipped_config() -> dict:
 
 def encoder_key(key: str):
     return shipped_config()["model"]["encoder"][key]
+
+
+@contextlib.contextmanager
+def captured_log(name: str, level: int = logging.INFO):
+    """The messages of logger ``name`` at ``level`` and above while the
+    block runs (the logger's level set to ``level`` meanwhile)."""
+    messages = []
+
+    class Seen(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    log, seen = logging.getLogger(name), Seen(level)
+    saved = log.level
+    log.setLevel(level)
+    log.addHandler(seen)
+    try:
+        yield messages
+    finally:
+        log.removeHandler(seen)
+        log.setLevel(saved)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -575,6 +611,8 @@ def phase_build() -> str:
                 print(f"[build] ptxas {name} {kernel}: {line.strip()}")
     card = card_line()
     print(f"[build] card: {card}")
+    print(f"[build] build directory (--compile-cache / ${cuda_build.CACHE_ENV}, else the "
+          f"package's _build/): {cuda_build.build_dir()}")
     cfg, enc = shipped_config(), shipped_config()["model"]["encoder"]
     check("yaml" not in sys.modules, "reading the config imported pyyaml")
     print(f"[config] {CONFIG_PATH.name} read by load_config without pyyaml (installed here: "
@@ -1603,15 +1641,36 @@ def phase_fused_serving(run_dir: Path, default_ckpt: Path, rng: np.random.Genera
     return launches
 
 
+def payload_differences(a, b, where: str = "") -> list:
+    """Where two checkpoint payloads differ: tensors by ``torch.equal``
+    (and dtype), containers by keys and length, other leaves by ``==``."""
+    if isinstance(a, torch.Tensor):
+        same = isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+        return [] if same else [where]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or list(a) != list(b):
+            return [where]
+        return [d for k in a for d in payload_differences(a[k], b[k], f"{where}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            return [where]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in payload_differences(x, y, f"{where}/{i}")]
+    return [] if a == b else [where]
+
+
 def phase_reproducible(root: Path) -> None:
     """``train_from_config`` twice from one seed on the card, tpu_fast_plus as
-    shipped and fused/pallas, 2 overfit batches (dropout and SpecAugment
-    drawn from the seeded generator): every logged loss and every trained
-    weight equal bit for bit (the JAX package's contract,
-    ``tests/test_determinism.py``). The trainer holds cuDNN to its
+    shipped and fused/pallas, 2 epochs of 2 overfit batches (dropout and
+    SpecAugment drawn from the seeded generator), the second run with
+    ``logging.async_checkpoints: true``: every logged loss, and every tensor
+    and counter of ``last`` and ``best`` (weights, AdamW moments and steps,
+    update count, epoch, step) equal bit for bit (the JAX package's
+    contract, ``tests/test_determinism.py``; its writer's,
+    ``tests/test_training.py``). The trainer holds cuDNN to its
     deterministic algorithms while it trains and restores the flags."""
     base = load_config(root / "config.json")
-    base["optim"]["max_epochs"] = 1
+    base["optim"]["max_epochs"] = 2
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     for label, enc in (("default", {}), ("fused/pallas", FUSED)):
         t0 = time.perf_counter()
@@ -1619,22 +1678,34 @@ def phase_reproducible(root: Path) -> None:
         for i in range(2):
             cfg = copy.deepcopy(base)
             cfg["model"]["encoder"].update(enc)
+            cfg["logging"]["async_checkpoints"] = i == 1
             run = root / f"repro_{'fused' if enc else 'default'}_{i}"
-            h = trainer.train_from_config(cfg, run, overfit_batches=2, device="cuda")["history"][0]
-            check_epoch(h, f"reproducible {label}")
-            runs.append(({f"{part} {k}": h[part][k] for part in ("train", "val")
-                          for k in ("total", "ctc", "distill")},
-                         load_checkpoint(run / "last")["state_dict"]))
+            history = trainer.train_from_config(cfg, run, overfit_batches=2,
+                                                device="cuda")["history"]
+            check(len(history) == 2, f"reproducible {label}: {len(history)} epochs")
+            for h in history:
+                check_epoch(h, f"reproducible {label}")
+            runs.append(([{f"{part} {k}": h[part][k] for part in ("train", "val")
+                           for k in ("total", "ctc", "distill")} for h in history],
+                         {name: load_checkpoint(run / name) for name in ("last", "best")}))
         check(runs[0][0] == runs[1][0], f"reproducible {label}: losses differ run to run: "
               f"{runs[0][0]} vs {runs[1][0]}")
-        bad = [n for n, w in runs[0][1].items() if not torch.equal(w, runs[1][1][n])]
-        check(not bad, f"reproducible {label}: {len(bad)} trained weights differ (first {bad[:3]})")
+        for name in ("last", "best"):
+            bad = payload_differences(runs[0][1][name], runs[1][1][name])
+            check(not bad, f"reproducible {label}: {len(bad)} entries of the async run's {name} "
+                  f"differ from the sync run's (first {bad[:3]})")
+        last = runs[0][1]["last"]
+        check((last["epoch"], last["optimizer"]["update_count"]) == (2, 4),
+              f"reproducible {label}: last holds epoch {last['epoch']}, "
+              f"{last['optimizer']['update_count']} updates")
         check((torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) == flags,
               f"reproducible {label}: the trainer left the cuDNN flags changed")
         print(f"[reproducible] {label}: two train_from_config runs from seed "
-              f"{base['logging'].get('seed', 42)} (2 overfit batches + val) gave equal losses "
-              f"{runs[0][0]} and {len(runs[0][1])} bit-equal trained tensors (torch.equal), in "
-              f"{time.perf_counter() - t0:.2f} s")
+              f"{base['logging'].get('seed', 42)} (2 epochs of 2 overfit batches + val; the "
+              f"second with async_checkpoints) gave equal losses {runs[0][0]}; last and best "
+              f"(epochs {last['epoch']} and {runs[0][1]['best']['epoch']}: "
+              f"{len(last['state_dict'])} tensors, AdamW moments and steps, counters) "
+              f"torch.equal, in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_fused_train(root: Path, rng: np.random.Generator) -> dict:
@@ -2783,8 +2854,15 @@ def large_train(root: Path, cfg_path: Path, card: str, steps: dict, fused: bool)
           and data["train_from_raw"] and data["teacher_dtype"] == "bfloat16",
           f"{name}: the config is not the shipped bf16 / remat / raw recipe: {enc}, {data}")
     reset_counts()
-    summary = trainer.train_from_config(cfg, root / f"run_{name}", overfit_batches=2, device="cuda")
+    with captured_log(trainer.logger.name) as said:
+        summary = trainer.train_from_config(cfg, root / f"run_{name}", overfit_batches=2,
+                                            device="cuda")
     c = counts()
+    # the shipped logging.async_checkpoints: true is honoured, not logged away
+    check(cfg["logging"]["async_checkpoints"] is True
+          and any("written on a background thread" in m for m in said)
+          and not any("not honoured" in m for m in said),
+          f"large {name}: the trainer's log {said} does not show async checkpoints honoured")
     n_train, n_eval = check_epoch(summary["history"][0], f"large {name}")
     check(n_train == 2 and n_eval == 1, f"large {name}: {n_train} train / {n_eval} eval steps")
     want = dict.fromkeys(COUNTERS, 0)
@@ -2800,7 +2878,8 @@ def large_train(root: Path, cfg_path: Path, card: str, steps: dict, fused: bool)
           f"768-frame buckets from raw EMG, bf16, remat, bf16 teacher) + {n_eval} eval step in "
           f"{time.perf_counter() - t0:.2f} s (checkpoints included); train total "
           f"{h['train']['total']:.4f}, val total {h['val']['total']:.4f}; launches "
-          f"{ {k: v for k, v in c.items() if v} }")
+          f"{ {k: v for k, v in c.items() if v} }; checkpoint written on the writer's thread "
+          f"(logging.async_checkpoints as shipped)")
     steps[f"{name} train"] = time.perf_counter() - t0
     totals = dict(c)
     if fused:
@@ -3610,18 +3689,28 @@ class StepRecorder:
 
 
 def rank_train(spec_path: str) -> int:
-    """One rank of phase 18a under ``torch.distributed.run``: the trainer
-    CLI (``trainer.main``) with the launch counts and the steps recorded."""
+    """One rank of phases 18a and 19c under ``torch.distributed.run``: the
+    trainer CLI (``trainer.main``) with the launch counts and the steps
+    recorded, once for each of the spec's ``runs``, in one process group:
+    a launch costs the card's host ~30–40 s."""
+    from ssd_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
     spec = json.loads(Path(spec_path).read_text())
     torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets them
     torch.backends.cudnn.allow_tf32 = False
-    rec = StepRecorder()
-    reset_counts()
-    with rec.patch():
-        trainer.main(spec["argv"])
-    out = dict(rec.result(), counts=counts(), rank=int(os.environ["RANK"]),
-               world=int(os.environ["WORLD_SIZE"]))
-    Path(f"{spec['out']}.rank{out['rank']}.json").write_text(json.dumps(out))
+    created = maybe_initialize_distributed()  # NCCL: the ranks train on the card
+    try:
+        for run in spec["runs"]:
+            rec = StepRecorder()
+            reset_counts()
+            with rec.patch():
+                trainer.main(run["argv"])
+            out = dict(rec.result(), counts=counts(), rank=int(os.environ["RANK"]),
+                       world=int(os.environ["WORLD_SIZE"]))
+            Path(f"{run['out']}.rank{out['rank']}.json").write_text(json.dumps(out))
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
     return 0
 
 
@@ -3696,19 +3785,23 @@ def multi_train(root: Path, card: str, nproc: int = 1) -> dict:
     w_want = load_checkpoint(single / "last")
     single_s = time.perf_counter() - t0
     total = dict.fromkeys(COUNTERS, 0)
+    runs, specs = [], []
     for label, par in blocks:
-        t0 = time.perf_counter()
         label = f"{label}_{nproc}"
         cfg = copy.deepcopy(base)
         cfg["parallel"] = par
         cfg_path = root / f"multi_{label}.json"
         cfg_path.write_text(json.dumps(cfg))
-        ranked = root / f"multi_{label}_torchrun"
-        spec = root / f"multi_{label}_spec.json"
-        out = root / f"multi_{label}"
-        spec.write_text(json.dumps({"out": str(out), "argv": [
-            "--config", str(cfg_path), "--run-dir", str(ranked), "--overfit-batches", "3"]}))
-        launch_s = torchrun(nproc, "--rank-train", str(spec))
+        ranked, out = root / f"multi_{label}_torchrun", root / f"multi_{label}"
+        runs.append((label, par, ranked, out))
+        specs.append({"out": str(out), "argv": [
+            "--config", str(cfg_path), "--run-dir", str(ranked), "--overfit-batches", "3"]})
+    spec = root / f"multi_{nproc}_spec.json"
+    spec.write_text(json.dumps({"runs": specs}))
+    # both trainings in one launch (one process group a rank, one after the other)
+    launch_s = torchrun(nproc, "--rank-train", str(spec))
+    for label, par, ranked, out in runs:
+        t0 = time.perf_counter()
         ranks = [json.loads(Path(f"{out}.rank{r}.json").read_text()) for r in range(nproc)]
         got = ranks[0]
         check(all(r["backend"] == "nccl" and r["world"] == nproc for r in ranks),
@@ -3755,9 +3848,9 @@ def multi_train(root: Path, card: str, nproc: int = 1) -> dict:
               f"{want['busy_ms']:.3f} ms one process (rank 0 x{got['busy_ms'] / want['busy_ms']:.3f}); "
               f"step 3's span on the device stream (CUDA events, host waits included) by rank "
               f"{[round(r['step_ms'][-1], 3) for r in ranks]} ms vs {want['step_ms'][-1]:.3f} ms; "
-              f"launches, all ranks {counts_all}; torchrun call {launch_s:.2f} s, total "
-              f"{time.perf_counter() - t0:.2f} s (the one-process run {single_s:.2f} s); "
-              f"card {card}")
+              f"launches, all ranks {counts_all}; torchrun call {launch_s:.2f} s for the "
+              f"{len(runs)} trainings, checks {time.perf_counter() - t0:.2f} s (the one-process "
+              f"run {single_s:.2f} s); card {card}")
     return total
 
 
@@ -3895,23 +3988,9 @@ def multi_serving(ckpt: Path, rng: np.random.Generator, card: str) -> dict:
     """Phase 18c: ``data_parallel`` serving. One card: the warning, and the
     reply of the same engine without it; more: rows split across the cards
     and the same text."""
-    import logging
-
-    class Seen(logging.Handler):
-        def __init__(self):
-            super().__init__(logging.WARNING)
-            self.messages = []
-
-        def emit(self, record):
-            self.messages.append(record.getMessage())
-
-    seen = Seen()
-    logging.getLogger("ssd_tpu_torch.parallel.replicas").addHandler(seen)
-    try:
+    with captured_log("ssd_tpu_torch.parallel.replicas", logging.WARNING) as messages:
         reset_counts()
         dp = InferenceEngine.from_checkpoint(ckpt, device="cuda", data_parallel=True)
-    finally:
-        logging.getLogger("ssd_tpu_torch.parallel.replicas").removeHandler(seen)
     plain = InferenceEngine.from_checkpoint(ckpt, device="cuda")
     reqs = requests(rng, 5)
     n = torch.cuda.device_count()
@@ -3923,8 +4002,8 @@ def multi_serving(ckpt: Path, rng: np.random.Generator, card: str) -> dict:
     check(hyps_dp == hyps, f"18c: data_parallel text {hyps_dp} vs {hyps}")
     check(torch.equal(ol_dp, ol), "18c: output lengths differ")
     if n < 2:
-        check(dp.replicas is None and any("only 1 device is visible" in m for m in seen.messages),
-              f"18c: one card but replicas {dp.replicas} and warnings {seen.messages}")
+        check(dp.replicas is None and any("only 1 device is visible" in m for m in messages),
+              f"18c: one card but replicas {dp.replicas} and warnings {messages}")
         check(torch.equal(lp_dp, lp), "18c: one card, yet the log-probs differ")
         how = "the warning logged, log-probs torch.equal to the engine without it"
     else:
@@ -4429,9 +4508,9 @@ def pipe_multi(root: Path, rng: np.random.Generator, card: str) -> dict:
         cfg_file.write_text(json.dumps(cfg))
         out = root / f"pipe_{label}"
         spec = root / f"pipe_{label}_spec.json"
-        spec.write_text(json.dumps({"out": str(out), "argv": [
+        spec.write_text(json.dumps({"runs": [{"out": str(out), "argv": [
             "--config", str(cfg_file), "--run-dir", str(root / f"pipe_ranks_{label}"),
-            "--overfit-batches", str(PIPE_STEPS)]}))
+            "--overfit-batches", str(PIPE_STEPS)]}]}))
         torchrun(need, "--rank-train", str(spec))
         ranks = [json.loads(Path(f"{out}.rank{r}.json").read_text()) for r in range(need)]
         got = ranks[0]
@@ -4482,9 +4561,9 @@ def pipe_multi(root: Path, rng: np.random.Generator, card: str) -> dict:
         cfg_file.write_text(json.dumps(cfg))
         out = root / f"pipe_dropout_{run}"
         spec = root / f"pipe_dropout_{run}_spec.json"
-        spec.write_text(json.dumps({"out": str(out), "argv": [
+        spec.write_text(json.dumps({"runs": [{"out": str(out), "argv": [
             "--config", str(cfg_file), "--run-dir", str(root / f"pipe_dropout_ranks_{run}"),
-            "--overfit-batches", str(PIPE_STEPS)]}))
+            "--overfit-batches", str(PIPE_STEPS)]}]}))
         torchrun(need, "--rank-train", str(spec))
         rank0 = json.loads(Path(f"{out}.rank0.json").read_text())
         runs.append((rank0["losses"],
@@ -4864,6 +4943,104 @@ def convert_round_trip(root: Path, cfg: dict, input_dim: int, reqs: list, name: 
     return [o[0] for o in out], lengths, counted.total
 
 
+# the forwards that run while a checkpoint is written: the training batch
+# (B 32, 768 frames), bf16, fused/pallas, without gradients
+STALL_B, STALL_FRAMES = 32, 768
+
+
+def checkpoint_stall(root: Path, card: str) -> None:
+    """Phase 21b: how long one epoch's checkpoint holds the training thread
+    for the full-depth tpu_scaled_large state (12 blocks, 166.29 M
+    parameters with their AdamW moments, ``last`` + ``best``):
+    ``save_checkpoint`` (synchronous) against the trainer's
+    ``CheckpointWriter(async_saves=True).save`` (the host snapshot: its
+    return, then its copies landed), the write itself (``finalize`` right
+    after a save), and whether bf16 forwards keep the card busy while the
+    write runs (their time beside the same forwards alone, over about half
+    the write's length). The async ``last`` must be ``torch.equal`` to the
+    sync one (phase 11c holds ``best`` too)."""
+    t_start = time.perf_counter()
+    full = load_config(LARGE_PATH)
+    cfg = {k: full[k] for k in ("model", "features", "optim", "logging")}
+    cfg["model"]["encoder"].update(FUSED)
+    L, input_dim = cfg["model"]["encoder"]["num_layers"], cfg["model"]["encoder"]["input_dim"]
+    check(L == 12, f"{LARGE_PATH.name}: expected 12 blocks, got {L}")
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        model = build_model(cfg, input_dim=input_dim, vocab_size=48)
+    params = list(model.parameters())
+    optimizer, _ = build_optimizer(cfg, params, total_updates=10)
+    for p_ in params:  # one AdamW update, so that both moments exist
+        p_.grad = torch.randn_like(p_) * 1e-3
+    optimizer.step()
+    optimizer.zero_grad()
+    n_params = sum(p_.numel() for p_ in params)
+    nbytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    nbytes += sum(t.numel() * t.element_size() for st in optimizer.adamw.state.values()
+                  for t in st.values())
+    built_s = time.perf_counter() - t_start
+
+    def save(fn, run: str) -> tuple:
+        """(seconds until ``fn`` returned, until the card had finished too)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(root / run, model.state_dict(), cfg, is_best=True,
+           optimizer=optimizer.state_dict(), epoch=1, step=1)
+        returned = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return returned, time.perf_counter() - t0
+
+    sync_s, _ = save(save_checkpoint, "sync")
+    writer = CheckpointWriter(async_saves=True)
+    cold = save(writer.save, "async")  # allocates the pinned buffers
+    t0 = time.perf_counter()
+    writer.finalize()
+    write_s = time.perf_counter() - t0
+
+    model.eval()
+    x = torch.randn(STALL_B, STALL_FRAMES, input_dim, device="cuda")
+    lengths = torch.full((STALL_B,), STALL_FRAMES, device="cuda")
+
+    def forwards(n: int) -> float:
+        """Seconds for ``n`` forwards, the card's work included."""
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(n):
+                model(x, lengths)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    forwards(3)  # warm
+    n = max(5, int(write_s / 2 / (forwards(3) / 3)))  # about half the write's length
+    alone_s = forwards(n)
+    warm = save(writer.save, "async")  # the buffers reused
+    during_s = forwards(n)
+    t0 = time.perf_counter()
+    writer.finalize()
+    waited_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    got, want = load_checkpoint(root / "async" / "last"), load_checkpoint(root / "sync" / "last")
+    bad = payload_differences(got, want)
+    check(not bad, f"21b: the async last differs from the sync one at {bad[:3]}")
+    compared_s = time.perf_counter() - t0
+    print(f"[checkpoint] tpu_scaled_large 12 blocks ({n_params / 1e6:.2f} M parameters + AdamW "
+          f"moments, {nbytes / 1e9:.3f} GB a file), last + best: save_checkpoint held the "
+          f"training thread {sync_s:.3f} s; the async writer's save returned in {cold[0]:.3f} s "
+          f"with its pinned buffers allocated ({cold[1]:.3f} s until its copies landed), "
+          f"{warm[0]:.3f} s reusing them ({warm[1]:.3f} s); the write alone {write_s:.3f} s "
+          f"(finalize); async last torch.equal to sync")
+    print(f"[checkpoint] overlap: {n} bf16 forwards (B {STALL_B}, {STALL_FRAMES} frames, "
+          f"fused/pallas, no grad) {alone_s * 1e3 / n:.3f} ms each alone, "
+          f"{during_s * 1e3 / n:.3f} ms each while the write ran (x{during_s / alone_s:.3f}); "
+          f"finalize then waited {waited_s:.3f} s for the rest of the write; {card}")
+    del writer, model, optimizer, params, got, want
+    for run in ("sync", "async"):
+        shutil.rmtree(root / run)
+    print(f"[checkpoint] 21b seconds: model and moments on the card {built_s:.2f}, the two "
+          f"files loaded and compared {compared_s:.2f}, all {time.perf_counter() - t_start:.2f}")
+
+
 def valid_gap(a: torch.Tensor, b: torch.Tensor, lengths: torch.Tensor) -> float:
     return max(float((a[i, :n] - b[i, :n]).abs().max()) for i, n in enumerate(lengths.tolist()))
 
@@ -4902,6 +5079,7 @@ def phase_convert(root: Path, rng: np.random.Generator, card: str) -> dict:
     for k, v in fast_launches.items():
         launches[k] += v
     print(f"[convert] launches: { {k: v for k, v in launches.items() if v} }")
+    checkpoint_stall(root / "stall", card)
     return launches
 
 

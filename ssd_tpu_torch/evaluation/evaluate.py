@@ -28,7 +28,9 @@ logged and the beam decodes without it. ``--quantize int8|int8_prequant``
 the model on every visible card and splits each batch's rows across them
 (``parallel/replicas.py``; pad rows a valid length, their results cut off);
 with one card it warns and runs on it, as the JAX CLI does.
-``--compile-cache`` has no PyTorch counterpart and is logged as unused.
+``--compile-cache DIR`` (else ``$SSD_COMPILE_CACHE``, else
+``ssd_tpu_torch/_build/``) is where the CUDA kernels and the host library
+are built, so a re-run reuses them.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from ssd_tpu_torch.ops.featurizer import FeaturizerConfig, logmel_batch
 from ssd_tpu_torch.ops.quant import maybe_prequantize
 from ssd_tpu_torch.parallel.replicas import data_parallel_replicas
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, load_config_for
+from ssd_tpu_torch.utils.cuda_build import enable_compile_cache
 from ssd_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -213,8 +216,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--compile-cache", type=Path, default=None,
-        help="Accepted for the JAX CLI's launch lines and unused: the CUDA kernels "
-        "are cached in ssd_tpu_torch/_build/ by source hash.",
+        help="Build the CUDA kernels and the host library into this directory and reuse "
+        "what was built there before (default: $SSD_COMPILE_CACHE, else "
+        "ssd_tpu_torch/_build/).",
     )
     p.add_argument(
         "--quantize",
@@ -242,9 +246,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     setup_cli_logging()
     args = build_parser().parse_args(argv)
     device = resolve_device("cuda" if args.device == "tpu" else args.device)
-    if args.compile_cache is not None:
-        logger.info("--compile-cache %s is unused: the CUDA kernels are cached in "
-                    "ssd_tpu_torch/_build/ by source hash", args.compile_cache)
+    enable_compile_cache(args.compile_cache)
     ckpt_path = args.checkpoint
     cfg = load_config_for(ckpt_path)
     if args.quantize is not None:

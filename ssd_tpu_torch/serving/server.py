@@ -9,9 +9,9 @@ Every flag of the JAX server parses. With ``--decoder beam``, ``--lm-path``
 fuses an ARPA n-gram LM into the beam search on the engine's device (a path
 that does not exist is logged and served without the LM, as the JAX server
 does); ``--alpha`` / ``--beta`` weigh it (CLI > the checkpoint's
-``decoding`` block > 0.5 / 0.0). ``--compile-cache`` has no PyTorch
-counterpart (the CUDA kernels are cached in ``ssd_tpu_torch/_build/`` by
-source hash) and is logged as unused.
+``decoding`` block > 0.5 / 0.0). ``--compile-cache DIR`` (else
+``$SSD_COMPILE_CACHE``, else ``ssd_tpu_torch/_build/``) is where the CUDA
+kernels and the host library are built, so a restart reuses them.
 
 Endpoints (same JSON and base64-npy contract as the JAX server):
   POST /transcribe     body: {"emg": <base64 of a float32 .npy (samples, C)>}
@@ -53,6 +53,7 @@ import numpy as np
 
 from ssd_tpu_torch.serving.engine import InferenceEngine
 from ssd_tpu_torch.serving.streaming import ChunkedStreamingTranscriber
+from ssd_tpu_torch.utils.cuda_build import enable_compile_cache
 
 logger = logging.getLogger(__name__)
 
@@ -300,15 +301,11 @@ def serve(
     beta: float | None = None,
     data_parallel: bool = False,
     quantize: str | None = None,
-    compile_cache: Path | None = None,
     device: str = "cuda",
     host: str = "0.0.0.0",
 ) -> ThreadingHTTPServer:
     """Load the checkpoint, warm up, and return the (not yet serving)
     HTTP server; ``server.batcher`` is its micro-batcher."""
-    if compile_cache is not None:
-        logger.info("--compile-cache %s is unused: the CUDA kernels are cached in "
-                    "ssd_tpu_torch/_build/ by source hash", compile_cache)
     engine = InferenceEngine.from_checkpoint(
         checkpoint, decoder=decoder, beam_width=beam_width, lm_path=lm_path,
         alpha=alpha, beta=beta, data_parallel=data_parallel, quantize=quantize, device=device,
@@ -343,8 +340,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Replicate the model on every visible card and split each batch's "
                    "rows across them (one card: a warning, then one device).")
     p.add_argument("--compile-cache", type=Path, default=None,
-                   help="Accepted for the JAX server's launch lines and unused: the CUDA "
-                   "kernels are cached in ssd_tpu_torch/_build/ by source hash.")
+                   help="Build the CUDA kernels and the host library into this directory and "
+                   "reuse what was built there before (default: $SSD_COMPILE_CACHE, else "
+                   "ssd_tpu_torch/_build/).")
     p.add_argument("--quantize", choices=["none", "int8", "int8_prequant"], default=None,
                    help="Inference-time dense quantization: int8 serves any float checkpoint "
                    "with int8 FFN / pointwise products; int8_prequant converts those "
@@ -359,6 +357,9 @@ def main() -> None:
 
     setup_cli_logging()
     args = build_parser().parse_args()
+    # a restart finds the kernels built by the last one (or by another
+    # process sharing the cache) instead of running nvcc again
+    enable_compile_cache(args.compile_cache)
     server = serve(
         args.checkpoint,
         port=args.port,
@@ -373,7 +374,6 @@ def main() -> None:
         beta=args.beta,
         data_parallel=args.data_parallel,
         quantize=args.quantize,
-        compile_cache=args.compile_cache,
         device=args.device,
     )
     try:

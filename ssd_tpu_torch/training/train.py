@@ -46,6 +46,14 @@ global batch, and each rank's loss is scaled so that the averaged gradient
 is the global batch's.
 Logging, scalars and checkpoints are rank 0's; a checkpoint holds the full
 tensors, so it loads at any topology.
+
+``logging.async_checkpoints: true`` writes each checkpoint on a background
+thread from a host copy taken at the save, while the next epoch trains
+(:class:`~ssd_tpu_torch.training.checkpoint.CheckpointWriter`); the files
+are the synchronous save's, and they have landed when the trainer returns
+or raises. ``--compile-cache DIR`` (or ``$SSD_COMPILE_CACHE``) is where the
+kernels and the host library are built and found again
+(:func:`~ssd_tpu_torch.utils.cuda_build.enable_compile_cache`).
 """
 
 from __future__ import annotations
@@ -96,11 +104,12 @@ from ssd_tpu_torch.parallel.partition import (
     sync_grads,
 )
 from ssd_tpu_torch.training.checkpoint import (
+    CheckpointWriter,
     load_checkpoint,
     load_params_partial,
-    save_checkpoint,
 )
 from ssd_tpu_torch.training.schedules import Optimizer, build_optimizer
+from ssd_tpu_torch.utils.cuda_build import enable_compile_cache
 from ssd_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -576,11 +585,13 @@ def _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resu
         info("Overfitting on %d batches (~%d items)", overfit_batches, train_limit)
 
     num_workers = workers_per_rank(cfg, split.local_data * (ctx.model if ctx else 1))
-    if bool(cfg["logging"].get("async_checkpoints", False)):
-        info(
-            "logging.async_checkpoints: true is not honoured: the port saves each "
-            "checkpoint synchronously (the saved contents are the same either way)"
-        )
+    # overlaps each epoch's checkpoint write with the next epoch; its files
+    # land before this call returns or raises
+    ckpt_writer = CheckpointWriter(async_saves=bool(cfg["logging"].get("async_checkpoints", False)))
+    closing.callback(ckpt_writer.finalize)
+    if ckpt_writer.async_saves:
+        info("logging.async_checkpoints: checkpoints are written on a background thread "
+             "while the next epoch trains")
     common = dict(
         index_path=Path(cfg["data"]["index"]),
         features_root=Path(cfg["data"]["features_root"]),
@@ -704,10 +715,10 @@ def _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resu
     patience = int(early.get("patience", 0))
     min_delta = float(early.get("min_delta", 0.0))
 
-    def checkpoint(epoch: int, is_best: bool) -> None:
+    def checkpoint(epoch: int, is_best: bool, wait: bool = False) -> None:
         if ctx is None:
-            save_checkpoint(
-                run_dir, model.state_dict(), cfg, is_best=is_best,
+            ckpt_writer.save(
+                run_dir, model.state_dict(), cfg, is_best=is_best, wait=wait,
                 optimizer=optimizer.state_dict(), epoch=epoch, step=state.step,
             )
             return
@@ -715,8 +726,8 @@ def _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resu
         full = full_state_dict(model)
         opt = optimizer.state_dict(gather=lambda i, t: gather_for(model, names[i], t))
         if ctx.is_main:
-            save_checkpoint(run_dir, full, cfg, is_best=is_best, optimizer=opt, epoch=epoch,
-                            step=state.step)
+            ckpt_writer.save(run_dir, full, cfg, is_best=is_best, wait=wait, optimizer=opt,
+                             epoch=epoch, step=state.step)
         dist.barrier()
 
     best_val = float("inf")
@@ -746,7 +757,7 @@ def _train(cfg, run_dir, init_checkpoint, dry_run, overfit_batches, writer, resu
             if guard.requested if ctx is None else _stop_requested_globally(guard, dev):
                 # save a resumable `last` labeled with the LAST COMPLETED
                 # epoch: --resume re-runs the interrupted one
-                checkpoint(epoch - 1, is_best=False)
+                checkpoint(epoch - 1, is_best=False, wait=True)
                 logger.warning(
                     "Preempted during epoch %d: saved resumable 'last' "
                     "(resume with --resume; the epoch re-runs)", epoch,
@@ -886,8 +897,9 @@ def _parse_args(argv=None) -> argparse.Namespace:
     p.add_argument(
         "--compile-cache",
         type=Path,
-        help="Accepted for CLI parity with the JAX trainer; nothing is compiled "
-        "ahead here, so it is ignored.",
+        help="Build the CUDA kernels and the host library into this directory and "
+        "reuse what an earlier run built there (default: $SSD_COMPILE_CACHE, else "
+        "ssd_tpu_torch/_build/).",
     )
     p.add_argument(
         "--device", default="cuda", help="cuda (default), cuda:N or cpu; no card raises."
@@ -900,8 +912,7 @@ def main(argv=None) -> None:
 
     setup_cli_logging()
     args = _parse_args(argv)
-    if args.compile_cache:
-        logger.info("--compile-cache %s ignored: the port compiles nothing ahead", args.compile_cache)
+    enable_compile_cache(args.compile_cache)
     import torch.distributed as dist
 
     cfg = load_config(args.config)

@@ -3,10 +3,12 @@
 Each kernel source under ``ssd_tpu_torch/csrc/`` exposes plain C entry
 points that return ``cudaError_t`` and a function naming such an error; no
 PyTorch header is included, so a build takes seconds. The shared library
-lands in ``ssd_tpu_torch/_build/`` under a name keyed by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused. Nothing is built when a module is imported: :meth:`CudaLibrary.load`
-runs at the first launch.
+lands in the build directory (:func:`build_dir`: ``--compile-cache`` /
+``$SSD_COMPILE_CACHE``, else ``ssd_tpu_torch/_build/``) under a name keyed
+by a hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused, by every process and checkout that shares the
+directory. Nothing is built when a module is imported:
+:meth:`CudaLibrary.load` runs at the first launch.
 
 :class:`CudaKernel` is what every kernel wrapper shares: the launch on the
 current stream, the error check after it and the count of launches;
@@ -21,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -30,13 +33,58 @@ import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+BUILD_DIR = PACKAGE_DIR / "_build"  # the default build directory
+CACHE_ENV = "SSD_COMPILE_CACHE"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+
+def build_dir() -> Path:
+    """Where the kernels and the host library are built and looked for:
+    ``$SSD_COMPILE_CACHE`` (``~`` expanded, made absolute) when set, else
+    :data:`BUILD_DIR`. The one reader of the variable, called at each
+    build, so :func:`enable_compile_cache` moves every later build."""
+    env = os.environ.get(CACHE_ENV)
+    return Path(env).expanduser().resolve() if env else BUILD_DIR
+
+
+def make_build_dir(path: Path) -> None:
+    """Create ``path`` for a build; an ``OSError`` when it cannot be written
+    names the flag and the variable that move it."""
+    try:
+        path.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=path):
+            pass
+    except OSError as e:
+        raise OSError(f"the build directory {path} cannot be written ({e}); give "
+                      f"--compile-cache DIR or set ${CACHE_ENV}") from e
+
+
+def enable_compile_cache(cache_dir: "str | os.PathLike | None" = None) -> str:
+    """The port's counterpart of the JAX package's ``enable_compile_cache``:
+    point the build cache at ``cache_dir``, else ``$SSD_COMPILE_CACHE``, else
+    ``ssd_tpu_torch/_build/``, so that restarts, other processes and other
+    checkouts that share it reuse every kernel built there. Returns the
+    active path.
+
+    A cache that was asked for is created (``OSError`` when it cannot be
+    written) and exported, absolute, as ``$SSD_COMPILE_CACHE``, so the
+    processes this one starts (torchrun ranks, the orchestrator's children)
+    build into it too; that lasts for the rest of the process, so only the
+    CLIs' ``main`` call this with a path. The default is left alone: a
+    read-only install whose kernels are built starts, and a build that
+    finds it unwritable raises then. A library a process has loaded stays
+    loaded.
+    """
+    path = Path(cache_dir).expanduser().resolve() if cache_dir else build_dir()
+    if path != BUILD_DIR:
+        make_build_dir(path)
+        os.environ[CACHE_ENV] = str(path)
+    return str(path)
 
 
 def _nvcc() -> str:
@@ -74,7 +122,7 @@ class CudaLibrary:
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
+        return build_dir() / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
@@ -90,7 +138,7 @@ class CudaLibrary:
             return self._lib
 
     def _compile(self, path: Path) -> None:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        make_build_dir(path.parent)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd: Sequence[str] = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         t0 = time.perf_counter()

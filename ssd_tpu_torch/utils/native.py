@@ -3,10 +3,11 @@
 ``native/`` sources), built with ``g++`` and bound with ctypes.
 
 Nothing is built when the module is imported: :func:`load` compiles the two
-sources into one shared library under ``ssd_tpu_torch/_build/`` on first
-use, named by a hash of the sources and the flags (an edited source is
-rebuilt, an unchanged one reused, as ``utils/cuda_build.py`` does for the
-CUDA sources), and loads it once a process. A build that fails raises with
+sources into one shared library in the build directory on first use
+(``utils/cuda_build.py``'s :func:`build_dir`: ``--compile-cache`` /
+``$SSD_COMPILE_CACHE``, else ``ssd_tpu_torch/_build/``), named by a hash of
+the sources and the flags (an edited source is rebuilt, an unchanged one
+reused, as for the CUDA sources), and loads it once a process. A build that fails raises with
 the compiler's output.
 """
 
@@ -20,7 +21,7 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-from ssd_tpu_torch.utils.cuda_build import BUILD_DIR, PACKAGE_DIR
+from ssd_tpu_torch.utils.cuda_build import PACKAGE_DIR, build_dir, make_build_dir
 
 NATIVE_DIR = PACKAGE_DIR / "native"
 SOURCES = ("flac_decoder.cpp", "edit_distance.cpp")
@@ -44,11 +45,11 @@ def library_path() -> Path:
     for name in SOURCES:
         digest.update((NATIVE_DIR / name).read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libssd_native-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"libssd_native-{digest.hexdigest()[:16]}.so"
 
 
 def _compile(path: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    make_build_dir(path.parent)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
            *(str(NATIVE_DIR / name) for name in SOURCES)]

@@ -17,6 +17,7 @@ from ssd_tpu_torch.data import audio as taudio
 from ssd_tpu_torch.data import flac as tflac
 from ssd_tpu_torch.evaluation import metrics as tmetrics
 from ssd_tpu_torch.utils import native
+from ssd_tpu_torch.utils.cuda_build import BUILD_DIR, CACHE_ENV
 
 from .torch_jax_native import encode_flac, jax_native
 
@@ -104,9 +105,14 @@ def test_native_edit_distance_matches_python():
     assert tmetrics._edit_counts(words, words[::-1]) == tmetrics._edit_counts_py(words, words[::-1])
 
 
-def test_host_library_is_keyed_by_its_sources():
+def test_host_library_is_keyed_by_its_sources(monkeypatch):
+    """With no ``$SSD_COMPILE_CACHE``, the library lands in the package's
+    ``_build/``."""
+    monkeypatch.setenv(CACHE_ENV, "")  # unset here, as it was after
+    monkeypatch.delenv(CACHE_ENV)
+    monkeypatch.setattr(native, "_lib", None)  # this process's library, put back after
     path = native.library_path()
-    assert path.parent == native.BUILD_DIR and path.name.startswith("libssd_native-")
+    assert path.parent == BUILD_DIR and path.name.startswith("libssd_native-")
     native.load()
     assert path.exists()
     assert native.load() is native.load()

@@ -1,15 +1,14 @@
 """Reproducible training with the port: the twin of
 ``tests/test_determinism.py`` (identical seeds give identical training
-trajectories), the CTC gradient summed without atomics, cuDNN's
-deterministic algorithms while the trainer runs on the card, and the log
-line for ``logging.async_checkpoints``, which the port does not honour.
+trajectories), the CTC gradient summed without atomics, and cuDNN's
+deterministic algorithms while the trainer runs on the card
+(``logging.async_checkpoints`` is held in
+``tests/test_torch_checkpoint_async.py``).
 
 On the card the same seed gives bit-equal losses too (``chip_smoke.py``
 trains twice from one seed in both configurations); here the trainer runs
 on the CPU, where it exercises the same code with the plain versions.
 """
-
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -30,11 +29,11 @@ pytestmark = pytest.mark.usefixtures("no_stray_processes")
 torch.set_num_threads(1)
 
 
-def _train(tmp_path, name, seed=0, **logging_kw):
+def _train(tmp_path, name, seed=0):
     import json
 
     cfg = json.loads(_corpus(tmp_path / name).read_text())
-    cfg["logging"].update(seed=seed, **logging_kw)
+    cfg["logging"].update(seed=seed)
     return ttrain.train_from_config(cfg, tmp_path / name / "run", dry_run=True, device="cpu")
 
 
@@ -47,26 +46,6 @@ def test_same_seed_same_losses(tmp_path):
 def test_different_seed_different_losses(tmp_path):
     s1, s2 = _train(tmp_path, "r1"), _train(tmp_path, "r2", seed=123)
     assert s1["best_val"] != s2["best_val"]
-
-
-def _trainer_said(records) -> list:
-    """The trainer's own records about ``logging.async_checkpoints``, picked
-    by logger and by the message's start: the test's ``tmp_path`` holds the
-    words too, and other loggers' lines name paths under it."""
-    return [r.getMessage() for r in records if r.name == ttrain.logger.name
-            and r.getMessage().startswith("logging.async_checkpoints")]
-
-
-def test_async_checkpoints_is_logged_not_honoured(tmp_path, caplog):
-    with caplog.at_level(logging.INFO, logger=ttrain.logger.name):
-        _train(tmp_path, "async", async_checkpoints=True)
-    said = _trainer_said(caplog.records)
-    assert said and "synchronously" in said[0]
-    assert (tmp_path / "async" / "run" / "last" / "model.pt").exists()
-    caplog.clear()
-    with caplog.at_level(logging.INFO, logger=ttrain.logger.name):
-        _train(tmp_path, "sync")
-    assert not _trainer_said(caplog.records)
 
 
 def test_cudnn_is_deterministic_only_while_training_on_the_card():

@@ -29,6 +29,7 @@ from ssd_tpu_torch.serving import server as tserver
 from ssd_tpu_torch.serving.server import encode_npy, serve
 from ssd_tpu_torch.serving.streaming import ChunkedStreamingTranscriber
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+from ssd_tpu_torch.utils.cuda_build import CACHE_ENV, build_dir
 
 from .test_torch_logging import restored_logging
 
@@ -314,7 +315,7 @@ def _argv_for(action: argparse.Action, option: str) -> list:
 def test_server_accepts_every_jax_server_flag(weights, tmp_path, monkeypatch, caplog):
     """Each option string of the JAX server's parser parses in the port's,
     and ``--alpha`` / ``--beta`` reach the engine through ``main``;
-    ``--compile-cache`` is logged once as unused."""
+    ``--compile-cache`` becomes the kernels' build directory."""
     jparser = _jax_server_parser(monkeypatch)
     parser = tserver.build_parser()
     options = [(a, o) for a in jparser._actions if a.dest != "help" for o in a.option_strings]
@@ -336,11 +337,12 @@ def test_server_accepts_every_jax_server_flag(weights, tmp_path, monkeypatch, ca
         "server", "--checkpoint", str(tmp_path / "run" / "last"), "--port", "0",
         "--device", "cpu", "--no-warmup", "--alpha", "0.7", "--beta", "0.2",
         "--compile-cache", str(tmp_path / "cache")])
+    monkeypatch.setenv(CACHE_ENV, str(tmp_path / "env"))  # the flag wins; restored after
     with caplog.at_level(logging.INFO, logger=tserver.logger.name), restored_logging():
         tserver.main()
     (server,) = started
     assert (server.batcher.engine.alpha, server.batcher.engine.beta) == (0.7, 0.2)
-    assert sum("--compile-cache" in r.getMessage() for r in caplog.records) == 1
+    assert build_dir() == (tmp_path / "cache").resolve() and build_dir().is_dir()
 
 
 def test_engine_lm_weights_precedence(weights):

@@ -28,6 +28,7 @@ from ssd_tpu_torch.ops.dropout import dropout
 from ssd_tpu_torch.training import schedules as tsched
 from ssd_tpu_torch.training import train as ttrain
 from ssd_tpu_torch.training.checkpoint import load_checkpoint, load_params_partial, save_checkpoint
+from ssd_tpu_torch.utils.cuda_build import CACHE_ENV, build_dir
 
 from .test_torch_logging import restored_logging
 from .torch_procs import no_stray_processes  # noqa: F401  (the fixture)
@@ -343,6 +344,7 @@ def test_cli_trains_resumes_and_warm_starts_on_cpu(tmp_path, monkeypatch):
     assert load_checkpoint(run / "last")["optimizer"]["update_count"] == 4
 
     run2 = tmp_path / "warm"
+    monkeypatch.setenv(CACHE_ENV, "")  # the flag exports it: put back after the test
     with restored_logging():
         ttrain.main(["--config", str(cfg_path), "--run-dir", str(run2), "--device", "cpu",
                      "--init-checkpoint", str(run / "best"), "--dry-run", "--overfit-batches", "1",
@@ -350,6 +352,7 @@ def test_cli_trains_resumes_and_warm_starts_on_cpu(tmp_path, monkeypatch):
                      "--compile-cache", str(tmp_path / "cc")])
     assert (run2 / "last/model.pt").exists()
     assert (tmp_path / "trace" / "trace.json").exists()
+    assert build_dir() == (tmp_path / "cc").resolve() and build_dir().is_dir()
 
 
 def test_weights_only_checkpoint_loads_and_partial_copy(tmp_path):

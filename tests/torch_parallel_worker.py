@@ -18,6 +18,9 @@ rank runs the jobs in order, in one process group:
   micro-step's synced gradients (taken as the optimizer steps) and the
   final parameters and buffers, all unsharded;
 * ``train``: ``train_from_config(..., device="cpu")``; its summary;
+* ``writes``: ``train`` with each checkpoint write recorded; its summary
+  and, in ``writes``, each write's thread name, epoch and ``is_best``; a
+  copy of the n-th write's files in ``<run_dir>/kept/<n>/``;
 * ``preempt``: ``train`` with the stop flag raised on rank
   ``job["signalled"]`` alone, after its first train step (past the
   epoch's in-epoch agreement at batch 0: a signal that reaches one rank
@@ -33,6 +36,7 @@ rank runs the jobs in order, in one process group:
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -128,6 +132,28 @@ def _train_job(job: Dict[str, Any]) -> Dict[str, Any]:
                                     overfit_batches=job.get("overfit_batches", 0))
 
 
+def _writes_job(job: Dict[str, Any]) -> Dict[str, Any]:
+    import threading
+    from unittest import mock
+
+    from ssd_tpu_torch.training import checkpoint as ckpt
+
+    writes = []
+    real = ckpt._write_payload
+
+    def write(run_dir, payload, cfg_text, is_best):
+        real(run_dir, payload, cfg_text, is_best)
+        for name in ("last", "best") if is_best else ("last",):
+            kept = run_dir / "kept" / str(len(writes)) / name
+            kept.mkdir(parents=True)
+            shutil.copy(run_dir / name / ckpt.MODEL_FILE, kept / ckpt.MODEL_FILE)
+        writes.append((threading.current_thread().name, payload.get("epoch"), is_best))
+
+    with mock.patch.object(ckpt, "_write_payload", write):
+        summary = _train_job(job)
+    return dict(summary, writes=writes)
+
+
 def _preempt_job(job: Dict[str, Any]) -> Dict[str, Any]:
     from unittest import mock
 
@@ -198,8 +224,8 @@ def _halo_job(job: Dict[str, Any]) -> Dict[str, Any]:
     return {"y": y.detach(), "contiguous": y.is_contiguous(), "gy": gy, "gx": x.grad}
 
 
-JOBS = {"step": _step_job, "train": _train_job, "preempt": _preempt_job, "halo": _halo_job,
-        "pipeline_errors": _pipeline_errors_job}
+JOBS = {"step": _step_job, "train": _train_job, "writes": _writes_job, "preempt": _preempt_job,
+        "halo": _halo_job, "pipeline_errors": _pipeline_errors_job}
 
 
 def main(workdir: str) -> None:
