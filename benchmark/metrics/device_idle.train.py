@@ -1,0 +1,9 @@
+"""Share of the traced training steps' device timeline with no operation
+on the device: 1 − the union of kernel, copy and set intervals over the
+span from the first to the last."""
+
+from benchmark.harness.readers import device_idle
+
+
+def read(res):
+    return device_idle(res)
